@@ -1,0 +1,105 @@
+"""GNN encoders: SAGE / GCN / WSAGE (port of plnlp_tpu/models/encoders.py).
+
+Each layer is linears around one SpMM (``ops/spmm.py``) over the full graph.
+Stacking follows the reference BaseGNN: conv -> relu between layers, the
+last layer linear, except that a single-layer stack applies relu after its
+one layer.  Eval only: dropout arrives with the training slice.
+
+* SAGE  — out = lin_l(mean_{j∈N(i)} x_j) + lin_r(x_i); bias on lin_l only.
+* GCN   — out = Â (x W) + b with Â precomputed (gcn_normalize_edges).
+* WSAGE — out = lin_rel(Σ_j w_ij x_j) + lin_root(x_i), D⁻¹A precomputed.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from plnlp_tpu_torch.nn import glorot_init, torch_linear_init
+from plnlp_tpu_torch.ops.spmm import spmm
+
+ENCODER_NAMES = ("SAGE", "GCN", "WSAGE", "TRANSFORMER")
+
+__all__ = ["Encoder", "ENCODER_NAMES"]
+
+
+def _layer_dims(in_ch, hidden_ch, out_ch, num_layers):
+    return [
+        (in_ch if i == 0 else hidden_ch, out_ch if i == num_layers - 1 else hidden_ch)
+        for i in range(num_layers)
+    ]
+
+
+def _sage_conv(lp, graph, graph_t, x):
+    agg = spmm(graph, x, reduce="mean", graph_t=graph_t)
+    return lp["lin_l"](agg) + lp["lin_r"](x)
+
+
+def _gcn_conv(lp, graph, graph_t, x):
+    # GCNConv order: out = Â (x W) + b (bias added after aggregation).
+    lin = lp["lin"]
+    hw = x @ lin.weight.t()
+    return spmm(graph, hw, reduce="sum", graph_t=graph_t) + lin.bias
+
+
+def _wsage_conv(lp, graph, graph_t, x):
+    agg = spmm(graph, x, reduce="sum", graph_t=graph_t)
+    return lp["lin_rel"](agg) + lp["lin_root"](x)
+
+
+_CONVS = {"SAGE": _sage_conv, "GCN": _gcn_conv, "WSAGE": _wsage_conv}
+
+
+class Encoder(nn.Module):
+    """``layers[i]`` is a ModuleDict named as in the JAX params pytree
+    (``lin_l``/``lin_r``, ``lin``, ``lin_rel``/``lin_root``)."""
+
+    def __init__(
+        self,
+        gen: torch.Generator,
+        name: str,
+        in_channels: int,
+        hidden_channels: int,
+        num_layers: int,
+        out_channels: Optional[int] = None,
+    ):
+        super().__init__()
+        self.name = name.upper()
+        if self.name == "TRANSFORMER":
+            raise NotImplementedError(
+                "TRANSFORMER is not ported yet (ROADMAP queue 1 item 5)"
+            )
+        if self.name not in _CONVS:
+            raise ValueError(f"unknown encoder: {name}")
+        out_channels = hidden_channels if out_channels is None else out_channels
+        layers = []
+        for fan_in, fan_out in _layer_dims(
+            in_channels, hidden_channels, out_channels, num_layers
+        ):
+            if self.name == "SAGE":
+                lp = {
+                    "lin_l": torch_linear_init(gen, fan_in, fan_out, bias=True),
+                    "lin_r": torch_linear_init(gen, fan_in, fan_out, bias=False),
+                }
+            elif self.name == "GCN":
+                lp = {"lin": glorot_init(gen, fan_in, fan_out, bias=True)}
+            else:
+                lp = {
+                    "lin_rel": torch_linear_init(gen, fan_in, fan_out, bias=True),
+                    "lin_root": torch_linear_init(gen, fan_in, fan_out, bias=False),
+                }
+            layers.append(nn.ModuleDict(lp))
+        self.layers = nn.ModuleList(layers)
+
+    def forward(self, graph, x: torch.Tensor, graph_t=None) -> torch.Tensor:
+        conv = _CONVS[self.name]
+        for lp in self.layers[:-1]:
+            x = torch.relu(conv(lp, graph, graph_t, x))
+        x = conv(self.layers[-1], graph, graph_t, x)
+        if len(self.layers) == 1:
+            # Reference quirk: a single-layer stack applies relu to its
+            # last layer (layer.py:23-27).
+            x = torch.relu(x)
+        return x

@@ -1,0 +1,15 @@
+from plnlp_tpu_torch.ops.spmm import (
+    SpmmBlocked,
+    blocked_sum_arrays,
+    spmm,
+    spmm_blocked,
+    spmm_segment,
+)
+
+__all__ = [
+    "spmm",
+    "spmm_segment",
+    "spmm_blocked",
+    "blocked_sum_arrays",
+    "SpmmBlocked",
+]

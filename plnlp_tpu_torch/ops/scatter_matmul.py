@@ -1,0 +1,119 @@
+"""Blocked-CSR weighted scatter-matmul: the CUDA kernel and its plain version.
+
+Replaces the TPU kernel ``plnlp_tpu/ops/pallas_spmm.py::_kernel``.  For
+every edge slot e of the sub-blocks of row-block rb:
+
+    out[rb * R + blk_local[e]] += blk_weight[e] * x[blk_src[e]]
+
+with output rows no edge reaches equal to zero.  The CUDA kernel
+(``csrc/scatter_matmul.cu``, whose header note gives its design and bound)
+fuses the gather ``x[blk_src]`` that the JAX path materializes; its wrapper
+:func:`scatter_matmul` launches it for CUDA tensors and uses
+:func:`scatter_matmul_reference` only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+__all__ = ["scatter_matmul", "scatter_matmul_reference"]
+
+# Kernel launches since the count was last set to 0 (read by chip_smoke.py
+# to show that the main path ran through the kernel).
+LAUNCHES = 0
+
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def scatter_matmul_reference(
+    x, blk_src, blk_local, blk_weight, blk_rowptr, block_rows: int, out_rows: int
+) -> torch.Tensor:
+    """Plain PyTorch version: weight-masked ``index_add_`` over
+    ``rowblock * R + local``, row-block rb taking the sub-blocks
+    ``[blk_rowptr[rb], blk_rowptr[rb + 1])`` as the kernel does."""
+    counts = (blk_rowptr[1:] - blk_rowptr[:-1]).long()
+    total = int(counts.sum())
+    rowblock = torch.repeat_interleave(
+        torch.arange(len(counts), device=x.device), counts, output_size=total
+    )
+    # index of each selected sub-block: its row-block's start + its rank
+    first = torch.cumsum(counts, 0) - counts
+    sub = torch.repeat_interleave(
+        blk_rowptr[:-1].long() - first, counts, output_size=total
+    ) + torch.arange(total, device=x.device)
+    dst = (rowblock[:, None] * block_rows + blk_local[sub]).reshape(-1)
+    msgs = x[blk_src[sub].reshape(-1)] * blk_weight[sub].reshape(-1, 1)
+    out = x.new_zeros((len(counts) * block_rows, x.shape[1]))
+    return out.index_add_(0, dst, msgs)[:out_rows]
+
+
+def _check(x, blk_src, blk_local, blk_weight, blk_rowptr, block_rows, out_rows):
+    tensors = {
+        "x": x, "blk_src": blk_src, "blk_local": blk_local,
+        "blk_weight": blk_weight, "blk_rowptr": blk_rowptr,
+    }
+    want = {
+        "x": torch.float32, "blk_src": torch.int32, "blk_local": torch.int32,
+        "blk_weight": torch.float32, "blk_rowptr": torch.int32,
+    }
+    for name, t in tensors.items():
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if t.dtype != want[name]:
+            raise TypeError(f"{name} must be {want[name]}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if x.dim() != 2 or blk_src.dim() != 2:
+        raise ValueError("x and blk_src must be 2-D")
+    if blk_local.shape != blk_src.shape or blk_weight.shape != blk_src.shape:
+        raise ValueError("blk_src, blk_local and blk_weight must share (nblk, B)")
+    n_rowblocks = -(-out_rows // block_rows)
+    if blk_rowptr.shape != (n_rowblocks + 1,):
+        raise ValueError(
+            f"blk_rowptr must have ceil(out_rows / R) + 1 = {n_rowblocks + 1} "
+            f"entries, got {tuple(blk_rowptr.shape)}"
+        )
+
+
+def scatter_matmul(
+    x: torch.Tensor,  # (n_src, D) float32 source features
+    blk_src: torch.Tensor,  # (nblk, B) int32 source row per edge slot
+    blk_local: torch.Tensor,  # (nblk, B) int32 destination row within row-block
+    blk_weight: torch.Tensor,  # (nblk, B) float32 edge weight (0 = padding)
+    blk_rowptr: torch.Tensor,  # (n_rowblocks + 1,) int32 first sub-block per row-block
+    block_rows: int,
+    out_rows: int,
+) -> torch.Tensor:
+    """Returns (out_rows, D).  CUDA tensors launch the kernel on the current
+    stream; CPU tensors take :func:`scatter_matmul_reference`."""
+    global LAUNCHES
+    _check(x, blk_src, blk_local, blk_weight, blk_rowptr, block_rows, out_rows)
+    if x.device.type == "cpu":
+        return scatter_matmul_reference(
+            x, blk_src, blk_local, blk_weight, blk_rowptr, block_rows, out_rows
+        )
+    if x.device.type != "cuda":
+        raise ValueError(f"scatter_matmul runs on cuda or cpu, not {x.device}")
+    from plnlp_tpu_torch import _build
+
+    lib = _build.load("scatter_matmul")
+    fn = lib.plnlp_scatter_matmul_f32
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    d = x.shape[1]
+    out = torch.empty((out_rows, d), dtype=torch.float32, device=x.device)
+    if out_rows == 0 or d == 0:
+        return out
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(
+            x.data_ptr(), blk_src.data_ptr(), blk_local.data_ptr(),
+            blk_weight.data_ptr(), blk_rowptr.data_ptr(), out.data_ptr(),
+            blk_rowptr.shape[0] - 1, out_rows, block_rows, blk_src.shape[1], d,
+            stream,
+        )
+    _build.check(lib, err, f"scatter_matmul launch (R={block_rows}, D={d})")
+    LAUNCHES += 1
+    return out
