@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the plnlp_tpu_torch serving path on one NVIDIA GPU and check it.
+"""Drive the plnlp_tpu_torch serving and training paths on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -19,10 +20,27 @@ Phases (any failure exits non-zero):
    ``score`` again with the MLP predictor; the kernel launch counts must
    show ``gnn_num_layers`` launches per encode, and the encode must agree
    with the same model run on the CPU (the plain path);
-6. time each kernel, its plain version, one PyTorch library call computing
-   the same function, the encode and the scoring rate; print one
-   ``{"kernels": [...]}`` line;
-7. print ``{"ok": true, "device": {...}}`` as the last line.
+6. time K1, its plain version, one PyTorch library call computing the same
+   function, the encode and the scoring rate;
+7. training data as the CLI builds it for a community-structured graph of
+   collab's size (800-community SBM, symmetrized): the label-prop estimate
+   at T = 256, min_fill = 96 (coverage must reach the 0.35 at which
+   ``--adj_backend=auto`` picks hybrid), the id-space relabel, the hybrid
+   operand (dense tiles + blocked residual) and the plain CSR twin the
+   negative sampler excludes;
+8. hold the tile kernel K2 against its plain version on the forward and
+   the transposed tile sets, and ``hybrid_spmm`` (mean) and its gradient
+   against autograd through the plain versions;
+9. train SAGE + MLP + AUC (width 256, 2 layers, batch 65,536, global
+   sampler) for one ``train_epoch`` and run ``Model.test`` over the hybrid
+   operand; the counts must show 4 K2 and 4 K1 launches per step and 2 of
+   each per encode, and the epoch's loss must be finite;
+10. one train step on the card against the same step on the CPU, on the
+   same recipe at a tenth of the size: loss, gradients, parameters;
+11. time K2 (both directions), its plain version, ``torch.sparse.mm`` on
+   the dense-tile edges, a train step and the epoch; print one
+   ``{"kernels": [...]}`` line listing K1 and K2;
+12. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -33,6 +51,7 @@ import argparse
 import copy
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -44,6 +63,14 @@ N_NODES = 235_868  # ogbl-collab
 N_EDGES = 1_179_052
 BLOCK = (512, 512)  # cli.py --block_rows/--block_edges defaults
 WIDTH = 256
+# The training graph: an SBM of collab's size whose communities (~295
+# nodes) the label-prop reorder recovers; the CLI's hybrid defaults.
+N_COMMUNITIES = 800
+TILE = 256  # --tile_size
+MIN_FILL = 96  # --tile_min_fill
+AUTO_COVERAGE = 0.35  # --tile_auto_coverage
+BATCH = 65_536  # --batch_size
+SMALL = 10  # the card-vs-CPU step runs at 1/SMALL of the size
 TOL = 1e-4  # rtol = atol for values that are not long sums (h, scores)
 # A kernel output is a sum of up to max_degree (26k here) f32 terms, added in
 # another order than the plain version adds them (shared-memory atomics vs
@@ -105,6 +132,314 @@ def sum_errors(got, want, abs_sum):
     diff = (got - want).abs()
     ratio = float((diff / (SUM_ATOL + SUM_RTOL * abs_sum)).max())
     return float(diff.max()), ratio, ratio <= 1.0
+
+
+# ---------------------------------------------------------------------------
+# The training path over the hybrid operand
+# ---------------------------------------------------------------------------
+
+
+def hybrid_data(num_nodes: int, num_edges: int, num_communities: int, seed: int, dev):
+    """Training data as the CLI builds it for ``--adj_backend=auto`` on a
+    community-structured graph: the label-prop estimate, the id-space
+    relabel (no per-call permutations), the perm-free hybrid operand and
+    the plain CSR twin for the negative sampler."""
+    from plnlp_tpu_torch import prepare_graph
+    from plnlp_tpu_torch.data import make_synthetic_dataset
+    from plnlp_tpu_torch.graph import to_undirected_edges
+    from plnlp_tpu_torch.ops.tile_spmm import build_hybrid, estimate_hybrid
+
+    t0 = time.perf_counter()
+    ds = make_synthetic_dataset(
+        "hits-sbm", num_nodes=num_nodes, num_edges=num_edges,
+        num_communities=num_communities, seed=seed,
+    )
+    src, dst, _ = to_undirected_edges(*ds["edge_index"], None, num_nodes)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    est = estimate_hybrid(
+        src, dst, num_nodes=num_nodes, tile=TILE, min_fill=MIN_FILL, reorder="labelprop"
+    )
+    t_est = time.perf_counter() - t0
+    relabel = np.empty(num_nodes, np.int64)
+    relabel[est["order"]] = np.arange(num_nodes)
+    src, dst = relabel[src], relabel[dst]
+    t0 = time.perf_counter()
+    hg = build_hybrid(
+        src, dst, None, num_nodes=num_nodes, tile=TILE, min_fill=MIN_FILL, block=BLOCK,
+        reorder=None, device=dev,
+    )
+    sample_graph, _ = prepare_graph(src, dst, None, num_nodes=num_nodes, block=None, device=dev)
+    t_build = time.perf_counter() - t0
+    split = {
+        s: {k: relabel[ds["split_edge"][s][e]] for k, e in (("pos", "edge"), ("neg", "edge_neg"))}
+        for s in ("valid", "test")
+    }
+    return {
+        "hg": hg, "sample_graph": sample_graph, "split": split, "est": est,
+        "pos": relabel[ds["split_edge"]["train"]["edge"]],
+        "seconds": (t_gen, t_est, t_build),
+    }
+
+
+def plain_hybrid_mean(hg, x):
+    """``hybrid_spmm(hg, x, "mean")`` through the kernels' plain versions,
+    so autograd gives the reference gradient (perm-free operand, x at
+    num_nodes rows)."""
+    import torch
+
+    from plnlp_tpu_torch.ops.scatter_matmul import scatter_matmul_reference
+    from plnlp_tpu_torch.ops.tile_matmul import tile_matmul_reference
+
+    n = hg.num_nodes
+    out = tile_matmul_reference(
+        hg.tile_vals, hg.tile_row, hg.tile_col, x, hg.tile_rowptr.shape[0] - 1, n
+    )
+    r = hg.res_graph
+    if r is not None:
+        out = out + scatter_matmul_reference(
+            x, r.blk_src, r.blk_local, r.blk_weight, r.blk_rowptr, r.block_rows, n
+        )
+    deg = hg.in_degrees
+    return out * torch.where(deg > 0, 1.0 / deg.clamp(min=1.0), 0.0)[:, None]
+
+
+def abs_operand(hg):
+    """The operand with every tile and residual weight made nonnegative:
+    its products with |x| are the sums of the terms' magnitudes."""
+    res = hg.res_graph
+    if res is not None:
+        res = dataclasses.replace(res, blk_weight=res.blk_weight.abs())
+    return dataclasses.replace(hg, tile_vals=hg.tile_vals.abs(), res_graph=res)
+
+
+def card_vs_cpu_step(cfg, args, dev, card) -> None:
+    """One train step on the card and the same step on the CPU (the plain
+    path), on the training recipe at 1/SMALL of the size.
+
+    Tolerances.  The loss within 1e-5 relative.  Each embedding and encoder
+    gradient (these pass back through K2 and K1) within 1e-4 in relative L2
+    norm: f32 sums in another order.  The predictor's gradient is plain
+    PyTorch over the 131k pairs and, at init, the small remainder of sums
+    whose terms cancel (the scores are near constant and the AUC gradient
+    sums to exactly 0 over each pos/neg pair; the last bias's gradient is
+    pure rounding residue), so reduction order moves it by up to a few
+    percent per tensor: the group is held within 5e-2 in relative L2 norm.
+    Adam's first step moves an entry by lr * u(g), u(g) = g / (|g| + eps),
+    whose slope eps / (|g| + eps)^2 is steep where |g| is near eps: so each
+    parameter after the step must agree within 1e-6 + lr * min(2, |dg| *
+    the largest slope between the two gradients), dg the gradients'
+    difference; 2 * lr is the most two first steps can differ."""
+    import torch
+
+    from plnlp_tpu_torch.training import Model
+
+    small = hybrid_data(
+        N_NODES // SMALL, N_EDGES // SMALL, N_COMMUNITIES // SMALL, args.seed + 1, dev
+    )
+    hg, n = small["hg"], small["hg"].num_nodes
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    m_gpu = Model(cfg, n, seed=args.seed + 1, device=dev)
+    m_cpu = copy.deepcopy(m_gpu).to("cpu")
+    pos = torch.as_tensor(small["pos"][:BATCH], device=dev)
+    neg = m_gpu.sample_negatives(gen, small["sample_graph"], pos)
+    mask = torch.ones(pos.shape[0], device=dev)
+    loss_g = float(m_gpu.train_step(m_gpu.make_optimizer(), hg, None, None, pos, neg, None,
+                                    mask, cfg.lr))
+    t0 = time.perf_counter()
+    loss_c = float(m_cpu.train_step(m_cpu.make_optimizer(), hg.to("cpu"), None, None,
+                                    pos.cpu(), neg.cpu(), None, mask.cpu(), cfg.lr))
+    cpu_s = time.perf_counter() - t0
+    require(abs(loss_g - loss_c) <= 1e-5 * abs(loss_c), f"loss card {loss_g} vs CPU {loss_c}")
+    pairs = [(k, a, b) for (k, a), (_, b) in zip(m_gpu.named_parameters(), m_cpu.named_parameters())]
+    kernel_side = [t for t in pairs if not t[0].startswith("predictor.")]
+    worst = 0.0
+    for k, a, b in kernel_side:
+        rel = float((a.grad.cpu() - b.grad).norm() / b.grad.norm().clamp(min=1e-30))
+        worst = max(worst, rel)
+        require(rel <= 1e-4, f"{k} gradient relative error {rel:.3e}")
+    pred = [t for t in pairs if t[0].startswith("predictor.")]
+    pred_rel = (sum(float((a.grad.cpu() - b.grad).square().sum()) for _, a, b in pred) ** 0.5
+                / max(sum(float(b.grad.square().sum()) for _, _, b in pred) ** 0.5, 1e-30))
+    require(pred_rel <= 5e-2, f"predictor gradient relative error {pred_rel:.3e}")
+    eps = 1e-8  # Adam's
+    worst_param, worst_ratio = 0.0, 0.0
+    for k, a, b in pairs:
+        d = (a.detach().cpu() - b.detach()).abs()
+        dg = (a.grad.cpu() - b.grad).abs()
+        slope = eps / ((b.grad.abs() - dg).clamp(min=0) + eps) ** 2
+        ratio = float((d / (1e-6 + cfg.lr * (dg * slope).clamp(max=2.0))).max())
+        worst_param, worst_ratio = max(worst_param, float(d.max())), max(worst_ratio, ratio)
+        require(ratio <= 1.0, f"{k} after the step: max |diff|/tol {ratio:.3f}")
+    log(f"[train] card vs CPU, one Adam step at N={n} (nt={hg.num_tiles}, batch "
+        f"{pos.shape[0]}): loss {loss_g:.9g} vs {loss_c:.9g}; embedding and encoder "
+        f"gradients worst relative L2 error {worst:.3e} (tol 1e-4), predictor group "
+        f"{pred_rel:.3e} (tol 5e-2); parameters after the step max |diff| "
+        f"{worst_param:.3e}, max |diff|/tol {worst_ratio:.3f}; CPU step {cpu_s:.1f} s")
+
+
+def train_path(args, dev, card):
+    """Phases 7-11; returns K2's entry of the kernels line and K1's
+    launches on the training path (epoch and test)."""
+    import torch
+
+    from plnlp_tpu_torch.ops import scatter_matmul as sm
+    from plnlp_tpu_torch.ops import tile_matmul as tm
+    from plnlp_tpu_torch.ops.spmm import spmm
+    from plnlp_tpu_torch.training import Model, ModelConfig
+
+    # 7. training data --------------------------------------------------------
+    data = hybrid_data(N_NODES, N_EDGES, N_COMMUNITIES, args.seed, dev)
+    hg, est = data["hg"], data["est"]
+    n = hg.num_nodes
+    n_r = hg.tile_rowptr.shape[0] - 1
+    e = hg.dense_edges + hg.res_edges
+    tile_bytes = 2 * hg.tile_vals.numel() * hg.tile_vals.element_size()
+    t_gen, t_est, t_build = data["seconds"]
+    log(f"[train-data] SBM N={n} E={e} (symmetrized), {N_COMMUNITIES} communities; "
+        f"estimate (label-prop, T={TILE}, min_fill={MIN_FILL}): coverage "
+        f"{est['coverage']:.4f}, {est['num_tiles']} tiles; generate {t_gen:.1f} s, "
+        f"estimate {t_est:.1f} s, build {t_build:.1f} s")
+    require(est["coverage"] >= AUTO_COVERAGE, f"coverage {est['coverage']} < {AUTO_COVERAGE}")
+    require(hg.res_graph is not None, "the operand has a residual")
+    log(f"[train-data] hybrid: nt={hg.num_tiles} over {n_r} row tiles, dense share "
+        f"{hg.dense_edges / e:.4f} ({hg.dense_edges} of {e} edges), store "
+        f"{hg.tile_vals.dtype}, tiles {tile_bytes / 1e6:.1f} MB in both directions, "
+        f"residual {hg.res_edges} edges; {len(data['pos'])} training pairs")
+
+    # 8. K2 and the hybrid operator against their plain versions ------------
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    x = torch.randn(n, WIDTH, device=dev, generator=gen)
+    sets = {
+        "tile_vals": (hg.tile_vals, hg.tile_row, hg.tile_col, hg.tile_rowptr),
+        "tile_vals_t": (hg.tile_vals_t, hg.tile_row_t, hg.tile_col_t, hg.tile_rowptr_t),
+    }
+    max_abs = 0.0
+    for label, (v, r, c, p) in sets.items():
+        got = tm.tile_matmul(v, r, c, p, x, n)
+        want = tm.tile_matmul_reference(v, r, c, x, n_r, n)
+        scale = tm.tile_matmul_reference(v.abs(), r, c, x.abs(), n_r, n)
+        torch.cuda.synchronize()
+        ea, ratio, ok = sum_errors(got, want, scale)
+        max_abs = max(max_abs, ea)
+        log(f"[check] tile_matmul on {label}: max_abs={ea:.3e} max err/tol={ratio:.3f} "
+            f"(tol {SUM_ATOL} + {SUM_RTOL}*sum|v x|) ok={ok}")
+        require(ok, f"tile_matmul on {label} disagrees with its plain version")
+    del got, want, scale
+    gy = torch.randn(n, WIDTH, device=dev, generator=gen)
+    xk = x.clone().requires_grad_(True)
+    out_k = spmm(hg, xk, reduce="mean")
+    out_k.backward(gy)
+    xr = x.clone().requires_grad_(True)
+    out_r = plain_hybrid_mean(hg, xr)
+    out_r.backward(gy)
+    hg_abs = abs_operand(hg)
+    xa = x.abs().requires_grad_(True)
+    out_a = plain_hybrid_mean(hg_abs, xa)
+    out_a.backward(gy.abs())
+    torch.cuda.synchronize()
+    for label, a, b, sc in (("hybrid_spmm mean fwd", out_k.detach(), out_r.detach(), out_a.detach()),
+                            ("hybrid_spmm mean grad", xk.grad, xr.grad, xa.grad)):
+        ea, ratio, ok = sum_errors(a, b, sc)
+        log(f"[check] {label} vs autograd through the plain versions: max_abs={ea:.3e} "
+            f"max err/tol={ratio:.3f} ok={ok}")
+        require(ok, f"{label} disagrees with the plain versions")
+    del xk, xr, xa, out_k, out_r, out_a, gy, hg_abs
+
+    # 9. one epoch and Model.test through the hybrid path ---------------------
+    cfg = ModelConfig(
+        encoder="SAGE", predictor="MLP", loss_func="AUC", neg_sampler="global",
+        gnn_num_layers=2, emb_hidden_channels=WIDTH, gnn_hidden_channels=WIDTH,
+        mlp_hidden_channels=WIDTH, batch_size=BATCH, num_neg=1,
+    )
+    model = Model(cfg, n, seed=args.seed, device=dev)
+    opt = model.make_optimizer()
+    steps = math.ceil(len(data["pos"]) / BATCH)
+    torch.cuda.synchronize()
+    tm.LAUNCHES = sm.LAUNCHES = 0
+    t0 = time.perf_counter()
+    loss = model.train_epoch(
+        opt, hg, None, None, data["pos"], None, gen, cfg.lr, sample_graph=data["sample_graph"]
+    )
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    k2_epoch, k1_epoch = tm.LAUNCHES, sm.LAUNCHES
+    log(f"[train] one epoch: {steps} steps, mean loss {loss:.6g}, {k2_epoch} tile_matmul "
+        f"and {k1_epoch} scatter_matmul launches; {epoch_s:.3f} s; card {card}")
+    # the epoch's loss is the count-weighted mean of every step's loss, so
+    # it is finite only if every step's is
+    require(math.isfinite(loss), f"epoch loss {loss}")
+    require(k2_epoch == 4 * steps and k1_epoch == 4 * steps,
+            f"{k2_epoch}/{k1_epoch} launches in {steps} steps (want 4 each a step)")
+    tm.LAUNCHES = sm.LAUNCHES = 0
+    hits = model.test(hg, None, None, data["split"], "hits")
+    torch.cuda.synchronize()
+    k2_test, k1_test = tm.LAUNCHES, sm.LAUNCHES
+    require(k2_test == 2 and k1_test == 2, f"{k2_test}/{k1_test} launches in one encode")
+    require(all(0.0 <= v <= 1.0 for pair in hits.values() for v in pair), f"hits {hits}")
+    log(f"[train] Model.test over the hybrid operand: {k2_test} tile_matmul and {k1_test} "
+        f"scatter_matmul launches (2 per encode); {json.dumps(hits)}")
+
+    # 10. the card against the CPU ------------------------------------------
+    card_vs_cpu_step(cfg, args, dev, card)
+
+    # 11. timings -------------------------------------------------------------
+    pos_b = torch.as_tensor(data["pos"][:BATCH], device=dev)
+    neg_b = model.sample_negatives(gen, data["sample_graph"], pos_b)
+    ones = torch.ones(BATCH, device=dev)
+    step_ms = cuda_ms(
+        lambda: model.train_step(opt, hg, None, None, pos_b, neg_b, None, ones, cfg.lr),
+        reps=3, runs=3,
+    )
+    k2_ms = {
+        label: cuda_ms(lambda a=a: tm.tile_matmul(*a, x, n), reps=10, runs=5)
+        for label, a in sets.items()
+    }
+    v, r, c, p = sets["tile_vals"]
+    plain_ms = cuda_ms(lambda: tm.tile_matmul_reference(v, r, c, x, n_r, n), reps=2, runs=3)
+    nz = v.nonzero()
+    rows = r[nz[:, 0]].long() * TILE + nz[:, 1]
+    cols = c[nz[:, 0]].long() * TILE + nz[:, 2]
+    adj = torch.sparse_coo_tensor(
+        torch.stack([rows, cols]), v[nz[:, 0], nz[:, 1], nz[:, 2]].float(), (n, n),
+        check_invariants=True,
+    ).coalesce().to_sparse_csr()
+    lib_err = float((torch.sparse.mm(adj, x) - tm.tile_matmul(v, r, c, p, x, n)).abs().max())
+    library_ms = cuda_ms(lambda: torch.sparse.mm(adj, x), reps=20, runs=5)
+    res = hg.res_graph
+    res_ms = cuda_ms(lambda: sm.scatter_matmul(
+        x, res.blk_src, res.blk_local, res.blk_weight, res.blk_rowptr, res.block_rows, n
+    ), reps=10, runs=5)
+    # Least time for the same work: vals, x and out once each plus the
+    # indices; the dense tile products' multiply-adds (2 nt T^2 D).
+    nbytes = (v.numel() * v.element_size() + 2 * n * WIDTH * 4
+              + (2 * hg.num_tiles + n_r + 1) * 4)
+    flops = 2 * hg.num_tiles * TILE * TILE * WIDTH
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"[time] tile_matmul tile_vals {k2_ms['tile_vals']:.4f} ms, tile_vals_t "
+        f"{k2_ms['tile_vals_t']:.4f} ms ({flops / k2_ms['tile_vals'] / 1e9:.2f} TFLOP/s); plain "
+        f"{plain_ms:.4f} ms; torch.sparse.mm (CSR of the {int(nz.shape[0])} dense-tile "
+        f"edges) {library_ms:.4f} ms (max_abs vs kernel {lib_err:.3e}); bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e9:.3f} GB, {flops / 1e9:.3f} GFLOP); "
+        f"card {card}")
+    log(f"[time] scatter_matmul on the residual ({hg.res_edges} edges) {res_ms:.4f} ms; "
+        f"train step (batch {BATCH}, 2-layer SAGE + MLP, hybrid) {step_ms:.3f} ms; "
+        f"epoch {epoch_s:.3f} s ({steps} steps, sampling included); card {card}")
+    return {
+        "name": "tile_matmul",
+        "route": "cuda",
+        "source": "plnlp_tpu_torch/csrc/tile_matmul.cu",
+        "replaces": "plnlp_tpu/ops/pallas_tiles.py:62",
+        "launches": k2_epoch + k2_test,
+        "max_abs_err": max_abs,
+        "ms": k2_ms["tile_vals"],
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+    }, k1_epoch + k1_test
 
 
 def main() -> int:
@@ -322,19 +657,22 @@ def main() -> int:
         f"rank 256 sources x {n} candidates k=50 exclude_edges {rank_s * 1e3:.1f} ms "
         f"({256 * n / rank_s:.4g} pairs/s); card {card}")
 
+    del model, model_mlp, scorer, scorer_mlp, x, adj, lib_out
+    k2, k1_train_launches = train_path(args, dev, card)
+
     kernels = [{
         "name": "scatter_matmul",
         "route": "cuda",
         "source": "plnlp_tpu_torch/csrc/scatter_matmul.cu",
         "replaces": "plnlp_tpu/ops/pallas_spmm.py:51",
-        "launches": launches,
+        "launches": launches + k1_train_launches,
         "max_abs_err": max_abs,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
-    }]
+    }, k2]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -1,4 +1,4 @@
-"""Load a plnlp_tpu parameter pytree into the port's :class:`Model`.
+"""Carry parameters between a plnlp_tpu pytree and the port's :class:`Model`.
 
 The JAX side stores each dense layer as ``{"w": (in, out), "b": (out,)}``;
 ``nn.Linear`` keeps ``weight`` as ``(out, in)``, so weights are transposed.
@@ -6,7 +6,9 @@ Module and attribute names mirror the pytree keys (``emb``,
 ``encoder.layers[i].lin_l``, ``predictor.lins[i]``, ``predictor.bilin``),
 so the walk is by name.  Every parameter of the model must be covered.
 
-Usage: ``params_from_jax(jax.tree_util.tree_map(np.asarray, params), model)``.
+Usage: ``params_from_jax(jax.tree_util.tree_map(np.asarray, params), model)``;
+``params_to_jax(model)`` gives the model's parameters back as a numpy tree
+in the JAX layout (to compare the two after training steps).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "params_to_jax"]
 
 
 def _copy(param: torch.Tensor, value, where: str, loaded: set) -> None:
@@ -62,3 +64,24 @@ def params_from_jax(np_tree, model: nn.Module) -> nn.Module:
     if missing:
         raise ValueError(f"parameters not in the JAX tree: {missing}")
     return model
+
+
+def _dump(module: nn.Module):
+    if isinstance(module, nn.Linear):
+        tree = {"w": module.weight.detach().cpu().numpy().T.copy()}
+        if module.bias is not None:
+            tree["b"] = module.bias.detach().cpu().numpy().copy()
+        return tree
+    if isinstance(module, nn.ModuleList):
+        return [_dump(m) for m in module]
+    return {name: _dump(child) for name, child in module.named_children()}
+
+
+@torch.no_grad()
+def params_to_jax(model: nn.Module) -> dict:
+    """``model``'s parameters as a numpy tree in the JAX pytree layout
+    (``emb``, ``encoder.layers[i]``, ``predictor``; weights ``(in, out)``)."""
+    tree = {"encoder": _dump(model.encoder), "predictor": _dump(model.predictor)}
+    if model.emb is not None:
+        tree["emb"] = model.emb.detach().cpu().numpy().copy()
+    return tree

@@ -178,6 +178,11 @@ def row_normalize_edges(src, dst, weight, num_nodes: int):
 # ---------------------------------------------------------------------------
 
 
+def _pad_to(n: int, multiple: int) -> int:
+    """``n`` rounded up to a multiple of ``multiple``."""
+    return ((n + multiple - 1) // multiple) * multiple
+
+
 def _csr_np(src, dst, weight, num_nodes: int, symmetrize: bool, coalesce: bool):
     """All-NumPy CSR assembly; returns a dict of host arrays."""
     src = np.asarray(src).astype(np.int64)

@@ -1,9 +1,15 @@
 """GNN encoders: SAGE / GCN / WSAGE (port of plnlp_tpu/models/encoders.py).
 
 Each layer is linears around one SpMM (``ops/spmm.py``) over the full graph.
-Stacking follows the reference BaseGNN: conv -> relu between layers, the
-last layer linear, except that a single-layer stack applies relu after its
-one layer.  Eval only: dropout arrives with the training slice.
+Stacking follows the reference BaseGNN: conv -> relu -> dropout between
+layers, the last layer linear, except that a single-layer stack applies
+relu and dropout after its one layer.
+
+Over a perm-free ``HybridGraph`` the stack runs padded-carry: x is padded
+once to num_nodes rounded up to the tile size and sliced once at the end,
+so no layer pads or slices (``ops/tile_spmm.is_padded_operand``).  Pad rows
+carry garbage (bias, relu) that never reaches a real row: pad nodes have
+no edges, and their cotangents are zero.
 
 * SAGE  — out = lin_l(mean_{j∈N(i)} x_j) + lin_r(x_i); bias on lin_l only.
 * GCN   — out = Â (x W) + b with Â precomputed (gcn_normalize_edges).
@@ -16,9 +22,13 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from plnlp_tpu_torch.graph import _pad_to
+from plnlp_tpu_torch.nn import dropout as _dropout
 from plnlp_tpu_torch.nn import glorot_init, torch_linear_init
 from plnlp_tpu_torch.ops.spmm import spmm
+from plnlp_tpu_torch.ops.tile_spmm import HybridGraph
 
 ENCODER_NAMES = ("SAGE", "GCN", "WSAGE", "TRANSFORMER")
 
@@ -93,13 +103,38 @@ class Encoder(nn.Module):
             layers.append(nn.ModuleDict(lp))
         self.layers = nn.ModuleList(layers)
 
-    def forward(self, graph, x: torch.Tensor, graph_t=None) -> torch.Tensor:
+    def forward(
+        self,
+        graph,
+        x: torch.Tensor,
+        graph_t=None,
+        *,
+        dropout: float = 0.0,
+        train: bool = False,
+        gen: Optional[torch.Generator] = None,
+        remat: bool = False,
+    ) -> torch.Tensor:
+        """``remat=True`` recomputes each conv in the backward
+        (``torch.utils.checkpoint``): activation memory for FLOPs."""
         conv = _CONVS[self.name]
+        if remat:
+            plain = conv
+
+            def conv(lp, graph, graph_t, x):
+                return checkpoint(plain, lp, graph, graph_t, x, use_reentrant=False)
+
+        n = x.shape[0]
+        pad_rows = 0
+        if isinstance(graph, HybridGraph) and graph.perm_in is None and n == graph.num_nodes:
+            pad_rows = _pad_to(n, graph.tile) - n
+            if pad_rows:
+                x = torch.cat([x, x.new_zeros((pad_rows, x.shape[1]))])
         for lp in self.layers[:-1]:
             x = torch.relu(conv(lp, graph, graph_t, x))
+            x = _dropout(x, dropout, gen, train)
         x = conv(self.layers[-1], graph, graph_t, x)
         if len(self.layers) == 1:
-            # Reference quirk: a single-layer stack applies relu to its
-            # last layer (layer.py:23-27).
-            x = torch.relu(x)
-        return x
+            # Reference quirk: a single-layer stack applies relu and dropout
+            # to its last layer (layer.py:23-27).
+            x = _dropout(torch.relu(x), dropout, gen, train)
+        return x[:n] if pad_rows else x

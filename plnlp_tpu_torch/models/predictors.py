@@ -1,5 +1,5 @@
-"""Pairwise edge scorers s(u, v): the six predictor families, eval mode
-(port of plnlp_tpu/models/predictors.py).
+"""Pairwise edge scorers s(u, v): the six predictor families (port of
+plnlp_tpu/models/predictors.py), with dropout between layers at train time.
 
 Output shapes follow the reference: MLP/MLPCAT return (B, 1);
 DOT/BIL/MLPDOT/MLPBIL return (B,).  MLPDOT/MLPBIL keep the reference
@@ -8,9 +8,12 @@ factory's width-1 tower: Linear(h, 1) then (L-1) x Linear(1, 1).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
+from plnlp_tpu_torch.nn import dropout as _dropout
 from plnlp_tpu_torch.nn import torch_linear_init
 
 PREDICTOR_NAMES = ("DOT", "BIL", "MLP", "MLPDOT", "MLPBIL", "MLPCAT")
@@ -31,17 +34,17 @@ def _stack(gen, dims):
     )
 
 
-def _mlp_final_scalar(lins, x):
-    """relu between layers, the last linear."""
+def _mlp_final_scalar(lins, x, rate=0.0, gen=None, train=False):
+    """relu + dropout between layers, the last linear."""
     for lin in lins[:-1]:
-        x = torch.relu(lin(x))
+        x = _dropout(torch.relu(lin(x)), rate, gen, train)
     return lins[-1](x)
 
 
-def _tower(lins, x):
-    """relu after every layer (MLPDOT/MLPBIL towers)."""
+def _tower(lins, x, rate=0.0, gen=None, train=False):
+    """relu + dropout after every layer (MLPDOT/MLPBIL towers)."""
     for lin in lins:
-        x = torch.relu(lin(x))
+        x = _dropout(torch.relu(lin(x)), rate, gen, train)
     return x
 
 
@@ -67,19 +70,28 @@ class Predictor(nn.Module):
         else:
             raise ValueError(f"unknown predictor: {name}")
 
-    def forward(self, x_i: torch.Tensor, x_j: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self,
+        x_i: torch.Tensor,
+        x_j: torch.Tensor,
+        *,
+        dropout: float = 0.0,
+        train: bool = False,
+        gen: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
         name = self.name
+        drop = (dropout, gen, train)
         if name == "DOT":
             return (x_i * x_j).sum(-1)
         if name == "BIL":
             return (self.bilin(x_i) * x_j).sum(-1)
         if name == "MLP":
-            return _mlp_final_scalar(self.lins, x_i * x_j)
+            return _mlp_final_scalar(self.lins, x_i * x_j, *drop)
         if name == "MLPCAT":
-            o1 = _mlp_final_scalar(self.lins, torch.cat([x_i, x_j], -1))
-            o2 = _mlp_final_scalar(self.lins, torch.cat([x_j, x_i], -1))
+            o1 = _mlp_final_scalar(self.lins, torch.cat([x_i, x_j], -1), *drop)
+            o2 = _mlp_final_scalar(self.lins, torch.cat([x_j, x_i], -1), *drop)
             return (o1 + o2) / 2
-        ti, tj = _tower(self.lins, x_i), _tower(self.lins, x_j)
+        ti, tj = _tower(self.lins, x_i, *drop), _tower(self.lins, x_j, *drop)
         if name == "MLPDOT":
             return (ti * tj).sum(-1)
         return (self.bilin(ti) * tj).sum(-1)

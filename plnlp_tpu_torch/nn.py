@@ -9,17 +9,21 @@ Each reproduces the torch/PyG default the reference trains with:
 * :func:`xavier_uniform` — the embedding table (torch xavier_uniform_).
 
 Draws happen on the CPU generator, so the same seed gives the same weights
-whatever device the model later moves to.
+whatever device the model later moves to.  :func:`dropout` draws its mask
+from the generator it is handed (on the tensor's device); the JAX package
+draws from ``jax.random``, so the two masks never agree and parity holds
+at rate 0 or with an injected ``mask``.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
 
-__all__ = ["linear", "torch_linear_init", "glorot_init", "xavier_uniform"]
+__all__ = ["linear", "torch_linear_init", "glorot_init", "xavier_uniform", "dropout"]
 
 
 def linear(fan_in: int, fan_out: int, bias: bool = True) -> nn.Linear:
@@ -59,3 +63,23 @@ def xavier_uniform(gen: torch.Generator, shape) -> torch.Tensor:
     """A ``(rows, cols)`` table with torch's xavier_uniform_ bound."""
     rows, cols = shape
     return _uniform(gen, shape, math.sqrt(6.0 / (rows + cols)))
+
+
+def dropout(
+    x: torch.Tensor,
+    rate: float,
+    gen: Optional[torch.Generator],
+    train: bool,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """torch.nn.functional.dropout semantics (inverted scaling at train).
+
+    The keep mask is ``mask`` when given (bool, ``x``'s shape), else drawn
+    from ``gen``; nothing happens outside training, at rate 0 or without a
+    generator, as in the JAX package."""
+    if not train or rate == 0.0 or (gen is None and mask is None):
+        return x
+    keep = 1.0 - rate
+    if mask is None:
+        mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

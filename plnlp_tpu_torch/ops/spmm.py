@@ -5,6 +5,8 @@
 * :func:`spmm_blocked` — the production path: the blocked scatter-matmul
   (``ops/scatter_matmul.py``, a CUDA kernel on the card) forward, and the
   same kernel over the transposed graph backward (dX = Aᵀ dY).
+* a :class:`~plnlp_tpu_torch.ops.tile_spmm.HybridGraph` goes to
+  ``hybrid_spmm`` (dense tiles + blocked residual, ``ops/tile_spmm.py``).
 
 Both support ``reduce ∈ {sum, mean}`` with torch_sparse semantics: mean
 divides by the in-degree, 0 for isolated rows.
@@ -18,6 +20,7 @@ import torch
 
 from plnlp_tpu_torch.graph import Graph
 from plnlp_tpu_torch.ops.scatter_matmul import scatter_matmul
+from plnlp_tpu_torch.ops.tile_spmm import HybridGraph, hybrid_spmm
 
 __all__ = ["spmm", "spmm_segment", "spmm_blocked", "blocked_sum_arrays", "SpmmBlocked"]
 
@@ -98,13 +101,17 @@ def spmm_blocked(
 
 
 def spmm(graph, x: torch.Tensor, reduce: str = "sum", graph_t=None) -> torch.Tensor:
-    """Aggregate ``x`` over ``graph``: the blocked kernel path when the graph
-    carries blocked metadata, the segment path otherwise."""
+    """Aggregate ``x`` over ``graph``: the hybrid operator for a
+    ``HybridGraph`` (which carries its own transpose), the blocked kernel
+    path when the graph carries blocked metadata, the segment path
+    otherwise."""
+    if isinstance(graph, HybridGraph):
+        return hybrid_spmm(graph, x, reduce)
     if not isinstance(graph, Graph):
         raise NotImplementedError(
             f"{type(graph).__name__} operands are not ported yet: DenseAdj "
-            "waits for ROADMAP queue 1 item 3 (dense backend), HybridGraph for "
-            "item 4 (hybrid backend), GraphParallel for item 8 (multi-device)"
+            "waits for ROADMAP queue 1 item 3 (dense backend), GraphParallel "
+            "for item 8 (multi-device)"
         )
     if graph.blk_src is not None:
         return spmm_blocked(graph, graph_t, x, reduce)

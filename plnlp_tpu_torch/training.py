@@ -1,16 +1,24 @@
-"""Model assembly and evaluation (port of the serving half of
-plnlp_tpu/training.py).
+"""Model assembly, training and evaluation (port of plnlp_tpu/training.py).
 
 ``Model`` is an ``nn.Module`` holding the embedding table, the encoder and
-the predictor, with the JAX package's input-layer sizing.  ``encode`` runs
-the full-graph encoder once and appends the mean row (index -1 resolves to
-it); ``batch_predict`` scores pairs in chunks; ``test`` is the eval loop.
-The optimizer, losses, samplers and the train step are the next slice.
+the predictor, with the JAX package's input-layer sizing.
+
+* Training: ``make_optimizer`` (torch.optim Adam / AdamW / SGD with the
+  settings the JAX package writes its optimizers to), ``train_step`` (one
+  full-graph forward, the fused predictor call over pos ⊕ neg pairs, the
+  loss, per-group clipping with the embedding excluded, one optimizer step
+  at the given lr) and ``train_epoch`` (negatives, shuffle, the masked
+  static last batch, the count-weighted mean loss).  Randomness comes from
+  the explicit ``torch.Generator`` the caller hands in.
+* Evaluation: ``encode`` runs the full-graph encoder once and appends the
+  mean row (index -1 resolves to it); ``batch_predict`` scores pairs in
+  chunks; ``test`` is the eval loop.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional
 
 import numpy as np
@@ -18,11 +26,18 @@ import torch
 from torch import nn
 
 from plnlp_tpu_torch import default_device
+from plnlp_tpu_torch.losses import calculate_loss
 from plnlp_tpu_torch.metrics import evaluate_hits, evaluate_mrr
 from plnlp_tpu_torch.models import Encoder, Predictor
 from plnlp_tpu_torch.nn import xavier_uniform
+from plnlp_tpu_torch.ops.tile_spmm import HybridGraph
+from plnlp_tpu_torch.sampling import (
+    global_neg_sample,
+    global_perm_neg_sample,
+    local_neg_sample,
+)
 
-__all__ = ["ModelConfig", "Model"]
+__all__ = ["ModelConfig", "Model", "adjust_lr"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,6 +150,144 @@ class Model(nn.Module):
         )
         return self.to(device)
 
+    # -- training -----------------------------------------------------------
+
+    def make_optimizer(self) -> torch.optim.Optimizer:
+        """The optimizer over every trainable parameter (a frozen pretrained
+        table is left out, so no step moves it), with torch.optim's
+        semantics as the JAX package writes them: Adam betas (0.9, 0.999),
+        eps 1e-8; AdamW the same with weight decay 0.01; SGD momentum 0.9,
+        nesterov, weight decay 1e-5.  ``train_step`` sets the lr."""
+        params = [p for p in self.parameters() if p.requires_grad]
+        name = self.cfg.optimizer.lower()
+        lr = self.cfg.lr
+        if name == "adamw":
+            return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01)
+        if name == "sgd":
+            return torch.optim.SGD(params, lr=lr, momentum=0.9, nesterov=True, weight_decay=1e-5)
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+    def loss(self, graph, graph_t, node_feats, pos, neg, margin, mask, gen=None) -> torch.Tensor:
+        """Train-mode forward and loss for one pair batch: the full-graph
+        encode, then ONE predictor call over pos ⊕ neg pairs; the loss in
+        f32."""
+        cfg = self.cfg
+        h = self.encoder(
+            graph, self._input_feat(node_feats), graph_t,
+            dropout=cfg.dropout, train=True, gen=gen, remat=cfg.remat,
+        )
+        b = pos.shape[0]
+        pairs = torch.cat([pos, neg.reshape(-1, 2)])
+        out = self.predictor(
+            h[pairs[:, 0]], h[pairs[:, 1]], dropout=cfg.dropout, train=True, gen=gen
+        )
+        out = out.reshape(out.shape[0], -1).float()
+        return calculate_loss(
+            cfg.loss_func, out[:b], out[b:], cfg.num_neg, margin=margin, mask=mask
+        )
+
+    def train_step(
+        self, opt, graph, graph_t, node_feats, pos, neg, margin, mask, lr: float, gen=None
+    ) -> torch.Tensor:
+        """One optimizer step on one pair batch; returns the (detached) loss.
+        The encoder and predictor gradients are clipped each to global norm
+        ``grad_clip_norm`` (the embedding is not clipped), as the reference
+        does."""
+        opt.zero_grad(set_to_none=True)
+        loss = self.loss(graph, graph_t, node_feats, pos, neg, margin, mask, gen)
+        loss.backward()
+        if self.cfg.grad_clip_norm >= 0:
+            for group in (self.encoder, self.predictor):
+                _clip_group(list(group.parameters()), self.cfg.grad_clip_norm)
+        for g in opt.param_groups:
+            g["lr"] = lr
+        opt.step()
+        return loss.detach()
+
+    def sample_negatives(self, gen: torch.Generator, graph, pos_edges: torch.Tensor):
+        """(P, num_neg, 2) negatives by sampler name; any name but local
+        and global is global-perm, as in the reference."""
+        cfg = self.cfg
+        p = pos_edges.shape[0]
+        if cfg.neg_sampler == "local":
+            return local_neg_sample(gen, pos_edges, self.num_nodes, cfg.num_neg)
+        if isinstance(graph, HybridGraph):
+            raise ValueError("global samplers need the plain CSR twin: pass sample_graph")
+        if cfg.neg_sampler == "global":
+            return global_neg_sample(gen, graph, p, cfg.num_neg)
+        return global_perm_neg_sample(gen, graph, p, cfg.num_neg)
+
+    def train_epoch(
+        self,
+        opt,
+        graph,
+        graph_t,
+        node_feats,
+        pos_edges,
+        weights,
+        gen: torch.Generator,
+        lr: float,
+        sample_graph=None,
+        num_pos: Optional[int] = None,
+        pos_mask=None,
+        mesh=None,
+    ) -> float:
+        """One epoch; returns the mean loss over the real positives.
+
+        ``pos_edges`` may be capacity-padded, with ``num_pos`` the real
+        count; ``pos_mask`` invalidates further entries.  ``weights`` are
+        per-pair margins (margin losses), or None.  ``sample_graph`` is the
+        edge set the negative sampler excludes (default ``graph``).  The
+        last batch takes the last ``batch_size`` entries and masks the ones
+        the previous batch already took.  ``gen`` lies on the model's
+        device."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "data-parallel training over a mesh is not ported yet (ROADMAP "
+                "queue 1 item 8, multi-device runtime)"
+            )
+        cfg = self.cfg
+        dev = self.device
+        pos_edges = torch.as_tensor(pos_edges, device=dev).long()
+        p_cap = pos_edges.shape[0]
+        p_real = num_pos if num_pos is not None else p_cap
+        use_margin = weights is not None
+        sg = sample_graph if sample_graph is not None else graph
+        neg_edges = self.sample_negatives(gen, sg, pos_edges)
+
+        # shuffle the real positives; a padded tail stays at the end, masked
+        perm = torch.randperm(p_real, generator=gen, device=gen.device).to(dev)
+        if p_cap > p_real:
+            perm = torch.cat([perm, torch.arange(p_real, p_cap, device=dev)])
+        pos_edges, neg_edges = pos_edges[perm], neg_edges[perm]
+        valid = (torch.arange(p_cap, device=dev) < p_real).float()
+        if pos_mask is not None:
+            valid = valid * torch.as_tensor(pos_mask, device=dev)[perm].float()
+        if use_margin:
+            weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)[perm]
+
+        b = min(cfg.batch_size, p_cap)
+        losses, counts = [], []
+        for i in range(max(1, math.ceil(p_real / b))):
+            lo = fresh_lo = i * b
+            if min(lo + b, p_cap) - lo < b:
+                lo = p_cap - b
+            mask = valid[lo : lo + b]
+            if fresh_lo > lo:
+                mask = mask * (torch.arange(lo, lo + b, device=dev) >= fresh_lo)
+            loss = self.train_step(
+                opt, graph, graph_t, node_feats,
+                pos_edges[lo : lo + b], neg_edges[lo : lo + b],
+                weights[lo : lo + b] if use_margin else None, mask, lr, gen,
+            )
+            # loss and count stay on the device: one sync per epoch
+            losses.append(loss)
+            counts.append(mask.sum())
+        losses, counts = torch.stack(losses), torch.stack(counts)
+        return float((losses * counts).sum()) / max(float(counts.sum()), 1.0)
+
+    # -- evaluation ---------------------------------------------------------
+
     def _input_feat(self, node_feats):
         """emb ⊕ raw features (reference create_input_feat)."""
         if self.cfg.use_node_feats:
@@ -194,3 +347,20 @@ class Model(nn.Module):
             preds["valid"]["pos"], preds["valid"]["neg"],
             preds["test"]["pos"], preds["test"]["neg"],
         )
+
+
+def _clip_group(params, max_norm: float) -> None:
+    """torch clip_grad_norm_ on one parameter group: scale every gradient
+    by min(1, max_norm / (global norm + 1e-6))."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+    scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
+    for g in grads:
+        g.mul_(scale)
+
+
+def adjust_lr(base_lr: float, decay_ratio: float) -> float:
+    """Linear lr decay floored at lr * 1e-4 (reference adjust_lr)."""
+    return max(base_lr * (1 - decay_ratio), base_lr * 1e-4)

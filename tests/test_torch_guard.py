@@ -16,7 +16,8 @@ REPO = Path(__file__).resolve().parent.parent
 def test_port_imports_neither_jax_nor_plnlp_tpu():
     code = (
         "import plnlp_tpu_torch, plnlp_tpu_torch.serve, plnlp_tpu_torch.convert, "
-        "plnlp_tpu_torch.data, plnlp_tpu_torch._build, sys; "
+        "plnlp_tpu_torch.data, plnlp_tpu_torch._build, plnlp_tpu_torch.losses, "
+        "plnlp_tpu_torch.sampling, plnlp_tpu_torch.ops.tile_spmm, sys; "
         "bad = [m for m in sys.modules if m == 'jax' or m == 'plnlp_tpu' "
         "or m.startswith(('jax.', 'plnlp_tpu.'))]; "
         "assert not bad, bad"

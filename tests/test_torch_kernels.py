@@ -12,6 +12,8 @@ import torch
 
 from plnlp_tpu_torch import graph as tgraph
 from plnlp_tpu_torch.ops import scatter_matmul as sm
+from plnlp_tpu_torch.ops import tile_matmul as tm
+from plnlp_tpu_torch.ops import tile_spmm as tts
 from plnlp_tpu_torch.ops.spmm import _mean_scale, spmm
 
 
@@ -68,3 +70,66 @@ def test_spmm_blocked_gradient_matches_autograd(cuda_graphs):
         gt.blk_rowptr, gt.block_rows, n,
     )
     assert _within_sum_tolerance(x.grad, xr.grad, abs_sum)
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", [torch.int8, torch.float32])
+@pytest.mark.parametrize("t,d", [(32, 24), (64, 100), (256, 256), (128, 131)])
+def test_tile_matmul_matches_plain_version(store, t, d):
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n_r, nt = 7, 13
+    # row tiles 2 and 5 get no tile: the kernel must write zeros there
+    trow = torch.sort(torch.tensor([0, 1, 3, 4, 6], device="cuda")[
+        torch.randint(0, 5, (nt,), device="cuda", generator=gen)]).values.int()
+    tcol = torch.randint(0, n_r, (nt,), device="cuda", generator=gen).int()
+    ptr = torch.cat([trow.new_zeros(1), torch.bincount(trow, minlength=n_r).cumsum(0).int()])
+    if store is torch.int8:
+        vals = torch.randint(-2, 3, (nt, t, t), device="cuda", generator=gen).to(torch.int8)
+    else:
+        vals = torch.randn(nt, t, t, device="cuda", generator=gen)
+    n_x = n_r * t - 3  # ragged last x tile
+    x = torch.randn(n_x, d, device="cuda", generator=gen)
+    before = tm.LAUNCHES
+    got = tm.tile_matmul(vals, trow, tcol, ptr, x, n_x)
+    torch.cuda.synchronize()
+    assert tm.LAUNCHES == before + 1
+    want = tm.tile_matmul_reference(vals, trow, tcol, x, n_r, n_x)
+    abs_sum = tm.tile_matmul_reference(vals.float().abs(), trow, tcol, x.abs(), n_r, n_x)
+    assert _within_sum_tolerance(got, want, abs_sum)
+    for r in (2, 5):
+        assert not got[r * t: (r + 1) * t].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reorder", [None, "labelprop"])
+def test_hybrid_spmm_gradient_matches_autograd(reorder):
+    _need_cuda()
+    from plnlp_tpu_torch.data.synthetic import make_sbm_graph
+
+    rng = np.random.default_rng(0)
+    n = 2000
+    src, dst = make_sbm_graph(rng, n, 30000, num_communities=10)
+    hg = tts.build_hybrid(src, dst, num_nodes=n, tile=64, min_fill=40, symmetrize=True,
+                          block=(256, 512), reorder=reorder, device="cuda")
+    assert hg.num_tiles > 1 and hg.res_edges > 0
+    x = torch.randn(n, 64, device="cuda", requires_grad=True)
+    gy = torch.randn(n, 64, device="cuda")
+    before = (tm.LAUNCHES, sm.LAUNCHES)
+    spmm(hg, x, reduce="mean").backward(gy)
+    torch.cuda.synchronize()
+    assert (tm.LAUNCHES, sm.LAUNCHES) == (before[0] + 2, before[1] + 2)
+    # autograd through the plain versions, as the CPU path runs them; the
+    # same backward of |gy| gives the sums of the terms' magnitudes (the
+    # adjacency is nonnegative)
+    hg_cpu = hg.to("cpu")
+    xr = x.detach().cpu().requires_grad_(True)
+    spmm(hg_cpu, xr, reduce="mean").backward(gy.cpu())
+    xa = x.detach().cpu().requires_grad_(True)
+    spmm(hg_cpu, xa, reduce="mean").backward(gy.cpu().abs())
+    assert _within_sum_tolerance(x.grad.cpu(), xr.grad, xa.grad)
