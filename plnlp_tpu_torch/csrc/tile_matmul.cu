@@ -30,16 +30,21 @@
 // writes its sub-tile once; empty row tiles write zeros.
 //
 // Bound on the H100 at the collab shape (SBM, N = 235,868, T = 256,
-// D = 256, nt = 2,658 tiles over nR = 922 row tiles, int8 store).
-// Operations: 2 * nt * T^2 * D = 89 GFLOP, 1.33 ms at the 67 TFLOP/s f32
-// peak.  Bytes: vals once (174 MB) + x once (242 MB) + out once (242 MB) +
-// indices, 0.66 GB or 0.20 ms at 3.35 TB/s; even re-reading one (T, D) x
-// tile per tile (697 MB in all) keeps it under 0.35 ms.  So the kernel is
-// bound by operations: 256 FMAs per 16 bytes read from shared memory, and
-// 64 accumulators per thread, keep the CUDA cores fed from registers.  The
-// tiles are ~1% full, so most FMAs multiply zeros; exploiting that, tensor
-// cores (bf16 x or TF32 at a stated tolerance), wgmma and TMA staging are
-// later work.
+// D = 256, nt = 2,658 tiles over nR = 922 row tiles holding 2.18M edges,
+// int8 store).  Bytes: vals once (174 MB) + x once (242 MB) + out once
+// (242 MB) + indices, 0.66 GB or 0.20 ms at 3.35 TB/s.  Operations the
+// function needs: one multiply-add per edge and column, 2 * 2.18M * D =
+// 1.1 GFLOP, 0.017 ms at the 67 TFLOP/s f32 peak.  So the function is bound
+// by bytes, at ~0.20 ms.
+//
+// This design does not approach that bound: it runs the dense tile
+// products, 2 * nt * T^2 * D = 89 GFLOP, and the tiles are ~1% full, so
+// ~99% of its FMAs multiply zeros and its own floor is 1.33 ms at the f32
+// peak.  For that work it keeps the CUDA cores fed from registers (256 FMAs
+// per 16 bytes read from shared memory, 64 accumulators per thread).
+// Reaching the byte bound means skipping zero chunks or gathering by edge;
+// tensor cores (bf16 x or TF32 at a stated tolerance), wgmma and TMA
+// staging are later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

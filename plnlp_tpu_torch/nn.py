@@ -12,7 +12,7 @@ Draws happen on the CPU generator, so the same seed gives the same weights
 whatever device the model later moves to.  :func:`dropout` draws its mask
 from the generator it is handed (on the tensor's device); the JAX package
 draws from ``jax.random``, so the two masks never agree and parity holds
-at rate 0 or with an injected ``mask``.
+at rate 0.
 """
 
 from __future__ import annotations
@@ -66,20 +66,14 @@ def xavier_uniform(gen: torch.Generator, shape) -> torch.Tensor:
 
 
 def dropout(
-    x: torch.Tensor,
-    rate: float,
-    gen: Optional[torch.Generator],
-    train: bool,
-    mask: Optional[torch.Tensor] = None,
+    x: torch.Tensor, rate: float, gen: Optional[torch.Generator], train: bool
 ) -> torch.Tensor:
     """torch.nn.functional.dropout semantics (inverted scaling at train).
 
-    The keep mask is ``mask`` when given (bool, ``x``'s shape), else drawn
-    from ``gen``; nothing happens outside training, at rate 0 or without a
-    generator, as in the JAX package."""
-    if not train or rate == 0.0 or (gen is None and mask is None):
+    The keep mask is drawn from ``gen``; nothing happens outside training,
+    at rate 0 or without a generator, as in the JAX package."""
+    if not train or rate == 0.0 or gen is None:
         return x
     keep = 1.0 - rate
-    if mask is None:
-        mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

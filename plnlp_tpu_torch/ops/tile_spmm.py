@@ -22,8 +22,9 @@ which reads the x tile as one contiguous block; tiles with fewer than
 
 Layout differences from the JAX package: ``tile_rowptr`` /
 ``tile_rowptr_t`` (the first tile of each row tile) let a CUDA block find
-its tiles; K2 zero-fills uncovered row tiles, so ``row_mask`` is kept for
-the record but no mask pass runs.
+its tiles; K2 zero-fills uncovered row tiles, so the operand carries no
+``row_mask`` (a row tile is covered iff its ``tile_rowptr`` range is not
+empty).
 """
 
 from __future__ import annotations
@@ -137,8 +138,7 @@ class HybridGraph:
     backward).  ``perm_in`` / ``perm_out`` (optional, (num_nodes,) int32):
     an internal relabel, perm_in[slot] = original id, perm_out[original id]
     = slot.  ``in_degrees`` (num_nodes,) f32: unweighted in-degrees in the
-    original id space.  ``row_mask`` / ``row_mask_t`` (nR,) bool: True
-    where a tile covers the row tile; None when all are covered."""
+    original id space."""
 
     tile_vals: torch.Tensor
     tile_row: torch.Tensor  # (nt,) int32, sorted
@@ -158,8 +158,6 @@ class HybridGraph:
     in_degrees: torch.Tensor
     perm_in: Optional[torch.Tensor] = None
     perm_out: Optional[torch.Tensor] = None
-    row_mask: Optional[torch.Tensor] = None
-    row_mask_t: Optional[torch.Tensor] = None
     reorder: str = "none"
 
     def to(self, device) -> "HybridGraph":
@@ -267,7 +265,6 @@ def build_hybrid(
     symmetrize: bool = False,
     coalesce: bool = True,
     max_tile_bytes: int = 2 * 1024**3,
-    dtype: str = "float32",
     reorder: Optional[str] = None,
     order: Optional[np.ndarray] = None,
     device=None,
@@ -279,15 +276,11 @@ def build_hybrid(
     ``reorder`` ("labelprop", "multilevel") relabels internally and sets
     ``perm_in``/``perm_out``; ``order`` is a precomputed reorder
     (order[slot] = old id), e.g. from :func:`estimate_hybrid`.  Tiles are
-    stored int8 when that is exact, else in ``dtype`` (float32 only)."""
+    stored int8 when that is exact, else float32 (the JAX package's bf16
+    store is ROADMAP queue 1 item 3)."""
     from plnlp_tpu_torch import default_device
 
     device = default_device(device)
-    if dtype != "float32":
-        raise NotImplementedError(
-            f"tile store dtype {dtype} is not ported yet (float32 only; bf16 is "
-            "ROADMAP queue 1 item 3)"
-        )
     csr = _csr_np(src, dst, weight, num_nodes, symmetrize, coalesce)
     es = csr["senders"].astype(np.int64)
     ed = csr["receivers"].astype(np.int64)
@@ -321,12 +314,6 @@ def build_hybrid(
     trow_t, tcol_t = tcol[order_t], trow[order_t]
 
     n_r = _pad_to(num_nodes, tile) // tile
-
-    def _coverage(rows):
-        m = np.zeros(n_r, bool)
-        m[rows] = True
-        return None if m.all() else m
-
     store = np.int8 if (np.all(vals == np.round(vals)) and np.abs(vals).max() <= 127) else np.float32
 
     res_g = res_gt = None
@@ -361,8 +348,6 @@ def build_hybrid(
         in_degrees=_t(in_deg),
         perm_in=_t(perm_in),
         perm_out=_t(perm_out),
-        row_mask=_t(_coverage(trow)),
-        row_mask_t=_t(_coverage(trow_t)),
         reorder=resolved,
     )
 

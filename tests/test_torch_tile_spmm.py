@@ -4,7 +4,7 @@
   orders) gives the same arrays as the JAX package's, exactly.
 * ``tile_matmul_reference`` (the plain version the CUDA kernel K2 is held
   to) against the Pallas kernel in interpret mode, as
-  tests/test_tile_spmm.py runs it, where ``row_mask`` is set; the port is
+  tests/test_tile_spmm.py runs it, on the covered row tiles; the port is
   zero elsewhere.
 * ``hybrid_spmm`` values and input gradients against the JAX operator
   (its XLA tile pass) through ``jax.vjp``: float32 sums in another order,
@@ -88,14 +88,21 @@ def test_build_hybrid_matches_jax(case):
     assert th.tile_vals.dtype == {np.dtype(np.int8): torch.int8,
                                   np.dtype(np.float32): torch.float32}[jh.tile_vals.dtype]
     for k in ("tile_vals", "tile_row", "tile_col", "tile_vals_t", "tile_row_t", "tile_col_t",
-              "in_degrees", "perm_in", "perm_out", "row_mask", "row_mask_t"):
+              "in_degrees", "perm_in", "perm_out"):
         a, b = _np(getattr(th, k)), _np(getattr(jh, k))
         assert (a is None) == (b is None), k
         if a is not None:
             np.testing.assert_array_equal(a, b, err_msg=k)
     n_r = -(-N // th.tile)
-    for rows, ptr in ((th.tile_row, th.tile_rowptr), (th.tile_row_t, th.tile_rowptr_t)):
-        np.testing.assert_array_equal(np.bincount(_np(rows), minlength=n_r), np.diff(_np(ptr)))
+    for rows, ptr, mask in ((th.tile_row, th.tile_rowptr, jh.row_mask),
+                            (th.tile_row_t, th.tile_rowptr_t, jh.row_mask_t)):
+        counts = np.diff(_np(ptr))
+        np.testing.assert_array_equal(np.bincount(_np(rows), minlength=n_r), counts)
+        # the JAX row mask (None when every row tile is covered) is the
+        # port's non-empty tile_rowptr ranges
+        covered = counts > 0
+        np.testing.assert_array_equal(covered, np.ones(n_r, bool) if mask is None else _np(mask))
+        assert (mask is None) == bool(covered.all())
     assert (th.res_graph is None) == (jh.res_graph is None)
     if th.res_graph is not None:
         _same_graph(th.res_graph, jh.res_graph)
@@ -194,5 +201,5 @@ def test_tile_matmul_rejects_bad_inputs():
         tm.tile_matmul(th.tile_vals[:, :8, :8].contiguous(), *args[1:], x, N)
     with pytest.raises(ValueError, match="out_rows"):
         tm.tile_matmul(*args, x, 10 * N)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tts.build_hybrid(*_sbm()[:2], num_nodes=N, tile=32, dtype="bfloat16", device="cpu")
+    with pytest.raises(ValueError, match="reorder"):
+        tts.build_hybrid(*_sbm()[:2], num_nodes=N, tile=32, reorder="metis", device="cpu")
