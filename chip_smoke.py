@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the plnlp_tpu_torch serving and training paths on one NVIDIA GPU
-and check them.
+"""Drive the plnlp_tpu_torch serving and training paths (SAGE and
+TRANSFORMER) on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -41,9 +41,22 @@ Phases (any failure exits non-zero):
    gradients, parameters;
 11. time K2 (both directions), its plain version, ``torch.sparse.mm`` on
    the dense-tile edges, a train step and the epoch, and reckon K2's bound
-   from the tiles' nonzeros and bytes; print one
-   ``{"kernels": [...]}`` line listing K1 and K2;
-12. print ``{"ok": true, "device": {...}}`` as the last line.
+   from the tiles' nonzeros and bytes;
+12. hold the flash attention kernels K3 (forward), K4 (dq) and K5 (dk/dv)
+   against their plain versions on the SBM operand's tile sets, with q, k,
+   v, g at the padded-carry n_pad rows (random pad rows, as after layer 1);
+13. hold ``hybrid_transformer_conv`` (padded-carry) and its input and
+   parameter gradients against autograd through the per-edge TRANSFORMER
+   path over the plain CSR twin of the same edges;
+14. train TRANSFORMER + MLP + AUC (width 256, 2 layers, batch 65,536, Adam)
+   for one ``train_epoch`` over the hybrid operand, then ``Model.test`` and
+   ``Scorer.score`` on 65,536 pairs; the counts must show 2 launches each
+   of K3, K4 and K5 per step, 2 of K3 per encode, and none of K1 or K2;
+15. the card-against-CPU step of phase 10 with the TRANSFORMER encoder;
+16. time K3, K4, K5, their plain versions and a TRANSFORMER train step, and
+   reckon each kernel's bound from the tiles' nonzeros and bytes; print one
+   ``{"kernels": [...]}`` line listing K1 to K5;
+17. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -219,10 +232,10 @@ def abs_operand(hg):
     return dataclasses.replace(hg, tile_vals=hg.tile_vals.abs(), res_graph=res)
 
 
-def card_vs_cpu_step(cfg, args, dev, card) -> None:
+def card_vs_cpu_step(cfg, small, args, dev) -> None:
     """One train step on the card and the same step on the CPU (the plain
-    path), on the training recipe at 1/SMALL of the size, with the CE loss
-    and SGD in place of the epoch's AUC and Adam.
+    path), on the training recipe at 1/SMALL of the size (``small``), with
+    the CE loss and SGD in place of the epoch's AUC and Adam.
 
     Why.  Under a pairwise loss such as AUC the gradient of the MLP
     predictor's last bias is exactly 0 and the predictor's other gradients
@@ -243,9 +256,6 @@ def card_vs_cpu_step(cfg, args, dev, card) -> None:
     from plnlp_tpu_torch.training import Model
 
     cfg = dataclasses.replace(cfg, loss_func="CE", optimizer="SGD")
-    small = hybrid_data(
-        N_NODES // SMALL, N_EDGES // SMALL, N_COMMUNITIES // SMALL, args.seed + 1, dev
-    )
     hg, n = small["hg"], small["hg"].num_nodes
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     m_gpu = Model(cfg, n, seed=args.seed + 1, device=dev)
@@ -276,7 +286,7 @@ def card_vs_cpu_step(cfg, args, dev, card) -> None:
         ratio = float((d / (1e-5 + 1e-5 * b.detach().abs())).max())
         worst_param, worst_ratio = max(worst_param, float(d.max())), max(worst_ratio, ratio)
         require(ratio <= 1.0, f"{k} after the step: max |diff|/tol {ratio:.3f}")
-    log(f"[train] card vs CPU, one SGD step with CE at N={n} (nt={hg.num_tiles}, batch "
+    log(f"[train] card vs CPU, {cfg.encoder}: one SGD step with CE at N={n} (nt={hg.num_tiles}, batch "
         f"{pos.shape[0]}): loss {loss_g:.9g} vs {loss_c:.9g}; gradient relative L2 error "
         + ", ".join(f"{g} {e:.3e}" for g, e in group_err.items())
         + f" (tol 1e-4); parameters after the step max |diff| {worst_param:.3e}, max "
@@ -284,8 +294,8 @@ def card_vs_cpu_step(cfg, args, dev, card) -> None:
 
 
 def train_path(args, dev, card):
-    """Phases 7-11; returns K2's entry of the kernels line and K1's
-    launches on the training path (epoch and test)."""
+    """Phases 7-16; returns the entries of K2-K5 in the kernels line and
+    K1's launches on the training path (epoch and test)."""
     import torch
 
     from plnlp_tpu_torch.ops import scatter_matmul as sm
@@ -396,7 +406,10 @@ def train_path(args, dev, card):
         f"scatter_matmul launches (2 per encode); {json.dumps(hits)}")
 
     # 10. the card against the CPU ------------------------------------------
-    card_vs_cpu_step(cfg, args, dev, card)
+    small = hybrid_data(
+        N_NODES // SMALL, N_EDGES // SMALL, N_COMMUNITIES // SMALL, args.seed + 1, dev
+    )
+    card_vs_cpu_step(cfg, small, args, dev)
 
     # 11. timings -------------------------------------------------------------
     pos_b = torch.as_tensor(data["pos"][:BATCH], device=dev)
@@ -450,7 +463,7 @@ def train_path(args, dev, card):
     log(f"[time] scatter_matmul on the residual ({hg.res_edges} edges) {res_ms:.4f} ms; "
         f"train step (batch {BATCH}, 2-layer SAGE + MLP, hybrid) {step_ms:.3f} ms; "
         f"epoch {epoch_s:.3f} s ({steps} steps, sampling included); card {card}")
-    return {
+    k2 = {
         "name": "tile_matmul",
         "route": "cuda",
         "source": "plnlp_tpu_torch/csrc/tile_matmul.cu",
@@ -462,7 +475,299 @@ def train_path(args, dev, card):
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
-    }, k1_epoch + k1_test
+    }
+    del model, opt, adj, x_pad, pos_b, neg_b
+    flash = transformer_path(args, dev, card, cfg, data, small, gen)
+    return [k2, *flash], k1_epoch + k1_test
+
+
+# ---------------------------------------------------------------------------
+# TRANSFORMER over the hybrid operand
+# ---------------------------------------------------------------------------
+
+
+def flash_bwd_magnitudes(vals, tile_row, tile_col, q, k, v, g, stats, scale, transposed):
+    """The sums of the terms' magnitudes of K4's dq (the row-sorted set) or
+    of K5's dk and dv (``transposed``), chunk by chunk as the plain versions
+    run: Σ_j |ds_ij| |k_j| with |ds| bounded by α (|g|·|v| + |δ|) scale, and
+    Σ α |g| for dv."""
+    import torch
+
+    from plnlp_tpu_torch.ops.flash_tiles import _chunks, _row_stats, _tiles
+
+    t, (rows, d) = vals.shape[1], q.shape
+    n_r = -(-rows // t)
+    qt, kt, vt, gt = (_tiles(a, n_r, t) for a in (q, k, v, g))
+    m, den, delta = _row_stats(stats, n_r, t)
+    out = [q.new_zeros((n_r, t, d)) for _ in range(2 if transposed else 1)]
+    for c in _chunks(vals.shape[0]):
+        r, cc = tile_row[c].long(), tile_col[c].long()
+        if transposed:  # rows are sources r, columns destinations cc
+            s = torch.bmm(kt[r], qt[cc].transpose(1, 2)) * scale
+            gv = torch.bmm(vt[r].abs(), gt[cc].abs().transpose(1, 2))
+            st = [a[cc][:, None, :] for a in (m, den, delta)]
+        else:
+            s = torch.bmm(qt[r], kt[cc].transpose(1, 2)) * scale
+            gv = torch.bmm(gt[r].abs(), vt[cc].abs().transpose(1, 2))
+            st = [a[r][:, :, None] for a in (m, den, delta)]
+        alpha = torch.where(vals[c] != 0, torch.exp(s - st[0]) / st[1], 0.0)
+        ds = alpha * (gv + st[2].abs()) * scale
+        if transposed:
+            out[0].index_add_(0, r, torch.bmm(ds, qt[cc].abs()))
+            out[1].index_add_(0, r, torch.bmm(alpha, gt[cc].abs()))
+        else:
+            out[0].index_add_(0, r, torch.bmm(ds, kt[cc].abs()))
+    return [o.reshape(-1, d)[:rows] for o in out]
+
+
+def check_flash_kernels(fwd_set, bwd_set, q, k, v, g, n):
+    """Phase 12: K3, K4 and K5 against their plain versions on the tile
+    sets ``fwd_set`` and ``bwd_set`` (vals, tile_row, tile_col,
+    tile_rowptr), with q, k, v, g of one (rows, D) shape; rows from ``n``
+    on have no edge and must come out empty.  Returns the stats (M, den, δ)
+    the backward checks used and each kernel's max abs error."""
+    import torch
+
+    from plnlp_tpu_torch.ops import flash_tiles as ft
+
+    n_pad = q.shape[0]
+    scale = 1.0 / math.sqrt(q.shape[1])
+    n_r = fwd_set[3].shape[0] - 1
+    errs = {}
+
+    # K3: y = num / den within 1e-5 + 1e-6 Σ p|v| / den, m within 1e-6 (1 + |m|),
+    # den within 1e-5 relative (a sum of positive terms); rows with no tile
+    # edge, the pad rows among them, exactly (0, 0, -inf)
+    num, ml = ft.flash_tiles_fwd(*fwd_set, q, k, v, scale)
+    num_r, ml_r = ft.flash_tiles_fwd_reference(*fwd_set[:3], q, k, v, n_r, scale)
+    num_a, _ = ft.flash_tiles_fwd_reference(*fwd_set[:3], q, k, v.abs(), n_r, scale)
+    torch.cuda.synchronize()
+    has = ml_r[:, 1] > 0
+    den_r = ml_r[:, 1].clamp(min=1e-30)[:, None]
+    y_err = ((num / ml[:, 1:].clamp(min=1e-30) - num_r / den_r).abs()[has]
+             / (SUM_ATOL + SUM_RTOL * num_a / den_r)[has])
+    m_err = (ml[has, 0] - ml_r[has, 0]).abs() / (1e-6 * (1 + ml_r[has, 0].abs()))
+    den_err = (ml[has, 1] - ml_r[has, 1]).abs() / (1e-5 * ml_r[has, 1])
+    ratio = max(float(y_err.max()), float(m_err.max()), float(den_err.max()))
+    empty_ok = (not num[~has].any() and not ml[~has, 1].any()
+                and bool(torch.isneginf(ml[~has, 0]).all()))
+    errs["fwd"] = float((num - num_r).abs().max())
+    log(f"[check] flash_tiles_fwd (K3) on tile_vals at {n_pad} rows: max_abs num "
+        f"{errs['fwd']:.3e}; max err/tol {ratio:.3f} (y {SUM_ATOL} + {SUM_RTOL}*sum p|v|/den, "
+        f"m 1e-6 (1+|m|), den 1e-5 den); {int(has.sum())} rows with a tile edge; rows without "
+        f"one (0, 0, -inf): {empty_ok}")
+    require(ratio <= 1.0 and empty_ok, "flash_tiles_fwd disagrees with its plain version")
+    require(not has[n:].any(), "flash_tiles_fwd: a pad row has a tile edge")
+
+    # the stats the backward gets: the global max and denominator of these
+    # tiles, and δ = Σ_d g·y
+    m_glob = torch.where(torch.isfinite(ml_r[:, 0]), ml_r[:, 0], 0.0)
+    den_glob = ml_r[:, 1].clamp(min=torch.finfo(torch.float32).tiny)
+    delta = (g * num_r / den_glob[:, None]).sum(-1)
+    stats = torch.stack([m_glob, den_glob, delta], 1).contiguous()
+    del num, ml, num_r, num_a, y_err
+
+    # K4, K5: within 1e-5 + 1e-6 Σ|terms|; rows past num_nodes zero
+    for kind, tiles, fn, ref in (
+        ("dq", fwd_set, ft.flash_tiles_dq, ft.flash_tiles_dq_reference),
+        ("dkv", bwd_set, ft.flash_tiles_dkv, ft.flash_tiles_dkv_reference),
+    ):
+        got = fn(*tiles, q, k, v, g, stats, scale)
+        want = ref(*tiles[:3], q, k, v, g, stats, n_r, scale)
+        mags = flash_bwd_magnitudes(*tiles[:3], q, k, v, g, stats, scale, kind == "dkv")
+        if kind == "dq":
+            got, want = [got], [want]
+        torch.cuda.synchronize()
+        errs[kind] = 0.0
+        for name, a, b, sc in zip(("dq",) if kind == "dq" else ("dk", "dv"), got, want, mags):
+            ea, ratio, ok = sum_errors(a, b, sc)
+            errs[kind] = max(errs[kind], ea)
+            log(f"[check] flash_tiles_{kind} ({'K4' if kind == 'dq' else 'K5'}) {name} at "
+                f"{n_pad} rows: max_abs={ea:.3e} max err/tol={ratio:.3f} (tol {SUM_ATOL} + "
+                f"{SUM_RTOL}*sum|terms|) ok={ok}")
+            require(ok, f"flash_tiles_{kind} {name} disagrees with its plain version")
+            require(not a[n:].any(), f"flash_tiles_{kind} {name}: rows past num_nodes not zero")
+        del got, want, mags
+    return stats, errs
+
+
+def check_transformer_conv(hg, sample_graph, n, gen, dev):
+    """Phase 13: one TRANSFORMER layer at width 256 over the hybrid operand
+    (x at the padded-carry n_pad rows) against autograd through the
+    per-edge path over the plain CSR twin (x at num_nodes rows), for the
+    rows past num_nodes a zero cotangent.  Values within rtol = atol =
+    1e-4; the gradient of x and of each linear (weight and bias together)
+    within 1e-4 in relative L2 norm.  (The key bias alone is not held: it
+    adds q_i·b to every logit of row i, which the softmax cancels, so its
+    gradient is 0 up to rounding residue.)"""
+    import torch
+
+    from plnlp_tpu_torch.models import Encoder
+    from plnlp_tpu_torch.models.encoders import _transformer_conv
+    from plnlp_tpu_torch.ops.tile_attention import hybrid_transformer_conv
+
+    n_pad = (hg.tile_rowptr.shape[0] - 1) * TILE
+    lp = Encoder(torch.Generator().manual_seed(1), "TRANSFORMER", WIDTH, WIDTH, 1).to(dev).layers[0]
+    x = torch.randn(n_pad, WIDTH, device=dev, generator=gen)
+    gy = torch.randn(n, WIDTH, device=dev, generator=gen)
+    grads = []
+    for run in ("hybrid", "per-edge"):
+        lp.zero_grad(set_to_none=True)
+        xr = (x if run == "hybrid" else x[:n]).clone().requires_grad_(True)
+        out = (hybrid_transformer_conv(lp, hg, xr) if run == "hybrid"
+               else _transformer_conv(lp, sample_graph, None, xr))
+        (out[:n] * gy).sum().backward()
+        grads.append([out[:n].detach(), xr.grad[:n]] + [
+            torch.cat([lin.weight.grad.reshape(-1), lin.bias.grad]) for lin in lp.values()])
+        if run == "hybrid":
+            require(out.shape == (n_pad, WIDTH), f"conv output {tuple(out.shape)}")
+            require(not xr.grad[n:].any(), "conv: gradient of the pad rows not zero")
+        del out, xr
+    torch.cuda.synchronize()
+    names = ["x", *lp.keys()]
+    ea, er, ok = errors(grads[0][0], grads[1][0])
+    require(ok, f"hybrid_transformer_conv values: max_abs {ea:.3e} max_rel {er:.3e}")
+    rel = {}
+    for name, a, b in zip(names, grads[0][1:], grads[1][1:]):
+        rel[name] = float((a - b).norm() / b.norm().clamp(min=1e-30))
+        require(rel[name] <= 1e-4, f"conv gradient of {name}: relative L2 error {rel[name]:.3e}")
+    log(f"[check] hybrid_transformer_conv (x at {n_pad} rows) vs autograd through the per-edge "
+        f"path on the CSR twin: values max_abs={ea:.3e} max_rel={er:.3e}; gradient relative L2 "
+        f"error max {max(rel.values()):.3e} (x {rel['x']:.3e}; tol 1e-4)")
+
+
+def transformer_path(args, dev, card, cfg, data, small, gen):
+    """Phases 12-16; returns the entries of K3, K4 and K5 in the kernels
+    line."""
+    import torch
+
+    from plnlp_tpu_torch.ops import flash_tiles as ft
+    from plnlp_tpu_torch.ops import scatter_matmul as sm
+    from plnlp_tpu_torch.ops import tile_matmul as tm
+    from plnlp_tpu_torch.serve import Scorer
+    from plnlp_tpu_torch.training import Model
+
+    hg = data["hg"]
+    n = hg.num_nodes
+    n_pad = (hg.tile_rowptr.shape[0] - 1) * TILE
+
+    # 12, 13. the kernels and the conv against their plain versions --------
+    fwd_set = (hg.tile_vals, hg.tile_row, hg.tile_col, hg.tile_rowptr)
+    bwd_set = (hg.tile_vals_t, hg.tile_row_t, hg.tile_col_t, hg.tile_rowptr_t)
+    q, k, v, g = (torch.randn(n_pad, WIDTH, device=dev, generator=gen) for _ in range(4))
+    stats, errs = check_flash_kernels(fwd_set, bwd_set, q, k, v, g, n)
+    check_transformer_conv(hg, data["sample_graph"], n, gen, dev)
+
+    # 14. one epoch, Model.test and Scorer.score ------------------------------
+    cfg = dataclasses.replace(cfg, encoder="TRANSFORMER")
+    model = Model(cfg, n, seed=args.seed, device=dev)
+    opt = model.make_optimizer()
+    steps = math.ceil(len(data["pos"]) / BATCH)
+    torch.cuda.synchronize()
+    ft.LAUNCHES.update(fwd=0, dq=0, dkv=0)
+    tm.LAUNCHES = sm.LAUNCHES = 0
+    t0 = time.perf_counter()
+    loss = model.train_epoch(
+        opt, hg, None, None, data["pos"], None, gen, cfg.lr, sample_graph=data["sample_graph"]
+    )
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    epoch = dict(ft.LAUNCHES)
+    log(f"[transformer] one epoch: {steps} steps, mean loss {loss:.6g}, launches {epoch} "
+        f"(K1 {sm.LAUNCHES}, K2 {tm.LAUNCHES}); {epoch_s:.3f} s; card {card}")
+    require(math.isfinite(loss), f"TRANSFORMER epoch loss {loss}")
+    require(epoch == {"fwd": 2 * steps, "dq": 2 * steps, "dkv": 2 * steps},
+            f"{epoch} launches in {steps} steps (want 2 of each a step)")
+    require(tm.LAUNCHES == 0 and sm.LAUNCHES == 0, "K1/K2 launched on the TRANSFORMER path")
+    ft.LAUNCHES.update(fwd=0, dq=0, dkv=0)
+    hits = model.test(hg, None, None, data["split"], "hits")
+    torch.cuda.synchronize()
+    test = dict(ft.LAUNCHES)
+    require(test == {"fwd": 2, "dq": 0, "dkv": 0}, f"{test} launches in one encode")
+    require(all(0.0 <= v <= 1.0 for pair in hits.values() for v in pair), f"hits {hits}")
+    ft.LAUNCHES.update(fwd=0, dq=0, dkv=0)
+    pairs = np.random.default_rng(args.seed).integers(0, n, (65_536, 2))
+    scores = Scorer(model, hg).score(pairs)
+    torch.cuda.synchronize()
+    serve = dict(ft.LAUNCHES)
+    require(serve == {"fwd": 2, "dq": 0, "dkv": 0}, f"{serve} launches in the Scorer's encode")
+    require(scores.shape == (65_536,) and np.isfinite(scores).all(), "TRANSFORMER scores")
+    require(tm.LAUNCHES == 0 and sm.LAUNCHES == 0, "K1/K2 launched by the TRANSFORMER encode")
+    log(f"[transformer] Model.test: {test} launches; {json.dumps(hits)}; Scorer.score on 65536 "
+        f"pairs finite, {serve} launches")
+
+    # 15. the card against the CPU ------------------------------------------
+    card_vs_cpu_step(cfg, small, args, dev)
+
+    # 16. timings -------------------------------------------------------------
+    pos_b = torch.as_tensor(data["pos"][:BATCH], device=dev)
+    neg_b = model.sample_negatives(gen, data["sample_graph"], pos_b)
+    ones = torch.ones(BATCH, device=dev)
+    step_ms = cuda_ms(
+        lambda: model.train_step(opt, hg, None, None, pos_b, neg_b, None, ones, cfg.lr),
+        reps=3, runs=3,
+    )
+    scale = 1.0 / math.sqrt(WIDTH)
+    n_r = n_pad // TILE
+    calls = {
+        "fwd": (lambda: ft.flash_tiles_fwd(*fwd_set, q, k, v, scale),
+                lambda: ft.flash_tiles_fwd_reference(*fwd_set[:3], q, k, v, n_r, scale)),
+        "dq": (lambda: ft.flash_tiles_dq(*fwd_set, q, k, v, g, stats, scale),
+               lambda: ft.flash_tiles_dq_reference(*fwd_set[:3], q, k, v, g, stats, n_r, scale)),
+        "dkv": (lambda: ft.flash_tiles_dkv(*bwd_set, q, k, v, g, stats, scale),
+                lambda: ft.flash_tiles_dkv_reference(*bwd_set[:3], q, k, v, g, stats, n_r,
+                                                     scale)),
+    }
+    # Least time for the same function on these inputs: the tiles (one int8
+    # read), each (n_pad, 256) f32 input read once and output written once,
+    # the stats and the indices; 4, 6 and 8 FLOP per nonzero and feature
+    # column (K3: q.k and p v; K4: q.k, g.v and ds k; K5: k.q, v.g, ds q and
+    # a g).  The kernels run the dense tile products (T^2 per tile in place
+    # of the nonzeros), printed beside the bound, not as it.
+    nnz = int((hg.tile_vals != 0).sum())
+    feat_bytes = n_pad * WIDTH * 4
+    idx_bytes = (2 * hg.num_tiles + n_r + 1) * 4
+    vals_bytes = hg.tile_vals.numel() * hg.tile_vals.element_size()
+    shape = {  # (feature arrays read + written, stats columns, FLOP per nonzero per column)
+        "fwd": (4, 2, 4), "dq": (5, 3, 6), "dkv": (6, 3, 8),
+    }
+    entries = []
+    for kind, (kernel, plain) in calls.items():
+        ms = cuda_ms(kernel, reps=5, runs=3)
+        plain_ms = cuda_ms(plain, reps=1, runs=3)
+        arrays, stat_cols, per = shape[kind]
+        nbytes = vals_bytes + arrays * feat_bytes + n_pad * stat_cols * 4 + idx_bytes
+        flops = per * nnz * WIDTH
+        dense = per * hg.num_tiles * TILE * TILE * WIDTH
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"[time] flash_tiles_{kind} {ms:.4f} ms (q, k, v, g at {n_pad} rows); plain "
+            f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e9:.3f} GB take "
+            f"{t_bytes:.4f} ms, {flops / 1e9:.3f} GFLOP on {nnz} nonzeros take {t_ops:.4f} ms); "
+            f"the dense tile products the kernel runs, {dense / 1e9:.3f} GFLOP, take "
+            f"{dense / F32_FLOPS * 1e3:.4f} ms at the f32 peak; card {card}")
+        entries.append({
+            "name": f"flash_tiles_{kind}",
+            "route": "cuda",
+            "source": "plnlp_tpu_torch/csrc/flash_tiles.cu",
+            "replaces": {"fwd": "plnlp_tpu/ops/pallas_attention.py:104",
+                         "dq": "plnlp_tpu/ops/pallas_attention.py:216",
+                         "dkv": "plnlp_tpu/ops/pallas_attention.py:303"}[kind],
+            "launches": epoch[kind] + test[kind] + serve[kind],
+            "max_abs_err": errs[kind],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            # no single PyTorch call computes tile-local softmax partials
+            # merged across a row tile's tiles (per-tile
+            # scaled_dot_product_attention normalises each tile alone)
+            "library_ms": None,
+        })
+    log(f"[time] TRANSFORMER train step (batch {BATCH}, 2 layers + MLP, hybrid) {step_ms:.3f} ms; "
+        f"epoch {epoch_s:.3f} s ({steps} steps, sampling included); card {card}")
+    return entries
 
 
 def main() -> int:
@@ -681,7 +986,7 @@ def main() -> int:
         f"({256 * n / rank_s:.4g} pairs/s); card {card}")
 
     del model, model_mlp, scorer, scorer_mlp, x, adj, lib_out
-    k2, k1_train_launches = train_path(args, dev, card)
+    train_kernels, k1_train_launches = train_path(args, dev, card)
 
     kernels = [{
         "name": "scatter_matmul",
@@ -695,7 +1000,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
-    }, k2]
+    }, *train_kernels]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

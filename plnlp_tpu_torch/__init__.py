@@ -1,9 +1,9 @@
 """plnlp_tpu_torch — the PyTorch/CUDA port of plnlp_tpu for one NVIDIA H100.
 
 Same module layout as ``plnlp_tpu`` (graph, ops/spmm, models, training,
-serve, metrics); the hot aggregation runs a hand-written CUDA kernel
-(``ops/scatter_matmul.py``, ``csrc/scatter_matmul.cu``).  Imports torch,
-numpy and the stdlib only.
+serve, metrics); the hot aggregations run hand-written CUDA kernels
+(``csrc/``: the blocked scatter-matmul, the dense-tile matmul and the
+block-sparse flash attention).  Imports torch, numpy and the stdlib only.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a GPU they raise instead of quietly running on the CPU.  Everything

@@ -1,6 +1,8 @@
-"""GNN encoders: SAGE / GCN / WSAGE (port of plnlp_tpu/models/encoders.py).
+"""GNN encoders: SAGE / GCN / WSAGE / TRANSFORMER (port of
+plnlp_tpu/models/encoders.py).
 
-Each layer is linears around one SpMM (``ops/spmm.py``) over the full graph.
+Each layer is linears around one aggregation over the full graph: an SpMM
+(``ops/spmm.py``), or for TRANSFORMER an attention-weighted sum.
 Stacking follows the reference BaseGNN: conv -> relu -> dropout between
 layers, the last layer linear, except that a single-layer stack applies
 relu and dropout after its one layer.
@@ -14,20 +16,29 @@ no edges, and their cotangents are zero.
 * SAGE  — out = lin_l(mean_{j∈N(i)} x_j) + lin_r(x_i); bias on lin_l only.
 * GCN   — out = Â (x W) + b with Â precomputed (gcn_normalize_edges).
 * WSAGE — out = lin_rel(Σ_j w_ij x_j) + lin_root(x_i), D⁻¹A precomputed.
+* TRANSFORMER — TransformerConv (one head): α_ij = softmax_j(⟨W_q x_i,
+  W_k x_j⟩/√d), out = W_skip x_i + Σ_j α_ij W_v x_j, adjacency values
+  ignored.  Over a ``HybridGraph`` it is the block-sparse flash path
+  (``ops/tile_attention.py``); over a ``Graph`` the per-edge path below.
+  (The JAX package's blocked hand-VJP over ``tconv_map`` and its dense
+  masked path are not ported yet.)
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from plnlp_tpu_torch.graph import _pad_to
+from plnlp_tpu_torch.graph import Graph, _pad_to
 from plnlp_tpu_torch.nn import dropout as _dropout
 from plnlp_tpu_torch.nn import glorot_init, torch_linear_init
+from plnlp_tpu_torch.ops.sddmm import edge_softmax
 from plnlp_tpu_torch.ops.spmm import spmm
+from plnlp_tpu_torch.ops.tile_attention import hybrid_transformer_conv
 from plnlp_tpu_torch.ops.tile_spmm import HybridGraph
 
 ENCODER_NAMES = ("SAGE", "GCN", "WSAGE", "TRANSFORMER")
@@ -59,12 +70,38 @@ def _wsage_conv(lp, graph, graph_t, x):
     return lp["lin_rel"](agg) + lp["lin_root"](x)
 
 
-_CONVS = {"SAGE": _sage_conv, "GCN": _gcn_conv, "WSAGE": _wsage_conv}
+def _transformer_conv(lp, graph, graph_t, x):
+    if isinstance(graph, HybridGraph):
+        return hybrid_transformer_conv(lp, graph, x)
+    if not isinstance(graph, Graph):
+        raise NotImplementedError(
+            f"TRANSFORMER over {type(graph).__name__} is not ported yet "
+            "(DenseAdj: ROADMAP queue 1 item 3; GraphParallel: item 8)"
+        )
+    # per-edge path; k and v are gathered at the same ids in one wide gather
+    d = lp["lin_query"].out_features
+    q, k, v = lp["lin_query"](x), lp["lin_key"](x), lp["lin_value"](x)
+    kv = torch.cat([k, v], -1)[graph.senders]
+    logits = (q[graph.receivers] * kv[:, :d]).sum(-1) / math.sqrt(d)
+    alpha = edge_softmax(graph, logits)
+    agg = x.new_zeros((graph.num_nodes, d)).index_add_(
+        0, graph.receivers, kv[:, d:] * alpha[:, None]
+    )
+    return agg + lp["lin_skip"](x)
+
+
+_CONVS = {
+    "SAGE": _sage_conv,
+    "GCN": _gcn_conv,
+    "WSAGE": _wsage_conv,
+    "TRANSFORMER": _transformer_conv,
+}
 
 
 class Encoder(nn.Module):
     """``layers[i]`` is a ModuleDict named as in the JAX params pytree
-    (``lin_l``/``lin_r``, ``lin``, ``lin_rel``/``lin_root``)."""
+    (``lin_l``/``lin_r``, ``lin``, ``lin_rel``/``lin_root``,
+    ``lin_query``/``lin_key``/``lin_value``/``lin_skip``)."""
 
     def __init__(
         self,
@@ -77,10 +114,6 @@ class Encoder(nn.Module):
     ):
         super().__init__()
         self.name = name.upper()
-        if self.name == "TRANSFORMER":
-            raise NotImplementedError(
-                "TRANSFORMER is not ported yet (ROADMAP queue 1 item 5)"
-            )
         if self.name not in _CONVS:
             raise ValueError(f"unknown encoder: {name}")
         out_channels = hidden_channels if out_channels is None else out_channels
@@ -95,6 +128,11 @@ class Encoder(nn.Module):
                 }
             elif self.name == "GCN":
                 lp = {"lin": glorot_init(gen, fan_in, fan_out, bias=True)}
+            elif self.name == "TRANSFORMER":
+                lp = {
+                    name: torch_linear_init(gen, fan_in, fan_out, bias=True)
+                    for name in ("lin_query", "lin_key", "lin_value", "lin_skip")
+                }
             else:
                 lp = {
                     "lin_rel": torch_linear_init(gen, fan_in, fan_out, bias=True),

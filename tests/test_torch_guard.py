@@ -17,7 +17,9 @@ def test_port_imports_neither_jax_nor_plnlp_tpu():
     code = (
         "import plnlp_tpu_torch, plnlp_tpu_torch.serve, plnlp_tpu_torch.convert, "
         "plnlp_tpu_torch.data, plnlp_tpu_torch._build, plnlp_tpu_torch.losses, "
-        "plnlp_tpu_torch.sampling, plnlp_tpu_torch.ops.tile_spmm, sys; "
+        "plnlp_tpu_torch.sampling, plnlp_tpu_torch.ops.tile_spmm, "
+        "plnlp_tpu_torch.ops.flash_tiles, plnlp_tpu_torch.ops.tile_attention, "
+        "plnlp_tpu_torch.ops.sddmm, sys; "
         "bad = [m for m in sys.modules if m == 'jax' or m == 'plnlp_tpu' "
         "or m.startswith(('jax.', 'plnlp_tpu.'))]; "
         "assert not bad, bad"

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from plnlp_tpu_torch import graph as tgraph
+from plnlp_tpu_torch.ops import flash_tiles as ft
 from plnlp_tpu_torch.ops import scatter_matmul as sm
 from plnlp_tpu_torch.ops import tile_matmul as tm
 from plnlp_tpu_torch.ops import tile_spmm as tts
@@ -133,3 +134,40 @@ def test_hybrid_spmm_gradient_matches_autograd(reorder):
     xa = x.detach().cpu().requires_grad_(True)
     spmm(hg_cpu, xa, reduce="mean").backward(gy.cpu().abs())
     assert _within_sum_tolerance(x.grad.cpu(), xr.grad, xa.grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", [torch.int8, torch.float32])
+@pytest.mark.parametrize("t,d", [(32, 24), (64, 100), (256, 256), (128, 131), (16, 300),
+                                 (32, 520)])
+def test_flash_tiles_match_plain_versions(store, t, d):
+    """K3, K4, K5 against their plain versions, with chip_smoke's checks
+    (y, m, den of K3; dq, dk, dv within 1e-5 + 1e-6 sum|terms|); row tiles
+    2 and 5 uncovered, the last row tile ragged; d up to 256 takes the
+    resident variant, wider d the chunked one in 256-column slices."""
+    _need_cuda()
+    import chip_smoke
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n_r, nt = 7, 13
+    trow = torch.sort(torch.tensor([0, 1, 3, 4, 6], device="cuda")[
+        torch.randint(0, 5, (nt,), device="cuda", generator=gen)]).values.int()
+    tcol = torch.randint(0, n_r, (nt,), device="cuda", generator=gen).int()
+    mask = torch.rand(nt, t, t, device="cuda", generator=gen) < 0.1
+    if store is torch.int8:
+        vals = (mask * torch.randint(1, 3, (nt, t, t), device="cuda", generator=gen)).to(torch.int8)
+    else:
+        vals = mask * torch.randn(nt, t, t, device="cuda", generator=gen)
+    order = torch.argsort(tcol.long() * n_r + trow.long(), stable=True)
+    vals_t = vals.transpose(1, 2)[order].contiguous()
+    trow_t, tcol_t = tcol[order].contiguous(), trow[order].contiguous()
+
+    def ptr(rows):
+        return torch.cat([rows.new_zeros(1), torch.bincount(rows, minlength=n_r).cumsum(0).int()])
+
+    rows = n_r * t - 3
+    q, k, v, g = (torch.randn(rows, d, device="cuda", generator=gen) for _ in range(4))
+    before = dict(ft.LAUNCHES)
+    chip_smoke.check_flash_kernels((vals, trow, tcol, ptr(trow)),
+                                   (vals_t, trow_t, tcol_t, ptr(trow_t)), q, k, v, g, rows)
+    assert ft.LAUNCHES == {key: before[key] + 1 for key in before}

@@ -193,15 +193,17 @@ def test_dropout_semantics():
 
 
 def test_remat_and_transformer():
-    tg, tgt, _, _ = _operands("SAGE", "csr")
-    grads = []
-    for remat in (False, True):
-        enc = Encoder(torch.Generator().manual_seed(0), "SAGE", W, W, 2)
-        x = torch.randn(N, W, generator=torch.Generator().manual_seed(1), requires_grad=True)
-        enc(tg, x, tgt, remat=remat).square().sum().backward()
-        grads.append(x.grad)
-    torch.testing.assert_close(grads[0], grads[1], rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        Encoder(torch.Generator(), "TRANSFORMER", W, W, 2)
+    # remat recomputes each conv in the backward: bitwise the same gradients,
+    # for SAGE over blocked CSR and TRANSFORMER over the hybrid operand
+    for encoder, backend in (("SAGE", "csr"), ("TRANSFORMER", "hybrid")):
+        tg, tgt, _, _ = _operands("GCN" if backend == "hybrid" else encoder, backend)
+        grads = []
+        for remat in (False, True):
+            enc = Encoder(torch.Generator().manual_seed(0), encoder, W, W, 2)
+            x = torch.randn(N, W, generator=torch.Generator().manual_seed(1), requires_grad=True)
+            enc(tg, x, tgt, remat=remat).square().sum().backward()
+            grads.append(x.grad)
+        torch.testing.assert_close(grads[0], grads[1], rtol=0, atol=0)
+    assert list(enc.layers[0]) == ["lin_query", "lin_key", "lin_value", "lin_skip"]
     assert adjust_lr(0.01, 0.5) == jax_adjust_lr(0.01, 0.5)
     assert adjust_lr(0.01, 1.0) == jax_adjust_lr(0.01, 1.0)
