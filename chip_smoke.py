@@ -13,7 +13,8 @@ Phases (any failure exits non-zero):
    CLI's default block (512, 512);
 4. hold each kernel against its plain PyTorch version on the card at the
    shapes the serving path gives it (x of shape (N, 256) over the graph and
-   its transpose), gradient included;
+   its transpose), gradient included, and require a second launch to give
+   the same bits;
 5. drive the serving path through the library entry points at full collab
    width (2-layer SAGE, width 256, DOT predictor): ``Scorer.score``,
    ``rank_candidates_batch(exclude_edges=True)`` and ``Model.test``, then
@@ -89,10 +90,11 @@ BATCH = 65_536  # --batch_size
 SMALL = 10  # the card-vs-CPU step runs at 1/SMALL of the size
 TOL = 1e-4  # rtol = atol for values that are not long sums (h, scores)
 # A kernel output is a sum of up to max_degree (26k here) f32 terms, added in
-# another order than the plain version adds them (shared-memory atomics vs
-# index_add_), so its rounding error scales with the sum of the terms'
-# magnitudes, not with the result (hub rows cancel to small values while
-# carrying ~1e-3 of rounding).  Kernel checks therefore require
+# another order than the plain version adds them (K1's runs and carries, K2's
+# compacted nonzeros, vs index_add_ and bmm), so its rounding error scales
+# with the sum of the terms' magnitudes, not with the result (hub rows cancel
+# to small values while carrying ~1e-3 of rounding).  Kernel checks therefore
+# require
 #   |kernel - plain| <= SUM_ATOL + SUM_RTOL * sum_e |w_e * x_e|
 # where SUM_RTOL is ~16 float32 unit roundoffs; a dropped or doubled edge
 # moves a row by |w * x| ~ 1, far outside it.
@@ -340,6 +342,8 @@ def train_path(args, dev, card):
         x, gy = x_pad[:rows], gy_pad[:rows]
         for label, (v, r, c, p) in sets.items():
             got = tm.tile_matmul(v, r, c, p, x, rows)
+            require(torch.equal(got, tm.tile_matmul(v, r, c, p, x, rows)),
+                    f"tile_matmul on {label}: a second launch differs")
             want = tm.tile_matmul_reference(v, r, c, x, n_r, rows)
             scale = tm.tile_matmul_reference(v.abs(), r, c, x.abs(), n_r, rows)
             torch.cuda.synchronize()
@@ -444,12 +448,14 @@ def train_path(args, dev, card):
     ), reps=10, runs=5)
     # Least time for the same function on these inputs: vals, x and out once
     # each plus the indices; one multiply-add per nonzero of the tiles and
-    # column of x (2 nnz D).  The kernel itself runs the dense tile products
-    # (2 nt T^2 D), which are printed beside the bound, not as it.
+    # column of x (2 nnz D).  Beside it: the row gather the kernel adds (one
+    # x row per nonzero), and the dense tile products (2 nt T^2 D) that the
+    # TPU kernel's shape runs and this kernel skips.
     nbytes = (v.numel() * v.element_size() + 2 * n_pad * WIDTH * 4
               + (2 * hg.num_tiles + n_r + 1) * 4)
     flops = 2 * nnz * WIDTH
     dense_flops = 2 * hg.num_tiles * TILE * TILE * WIDTH
+    gather_bytes = nnz * WIDTH * 4
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
     bound_ms = max(t_bytes, t_ops)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
@@ -457,9 +463,10 @@ def train_path(args, dev, card):
         f"{k2_ms['tile_vals_t']:.4f} ms (x at {n_pad} rows); plain {plain_ms:.4f} ms; "
         f"torch.sparse.mm (CSR of the {nnz} dense-tile edges) {library_ms:.4f} ms (max_abs "
         f"vs kernel {lib_err:.3e}); bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e9:.3f} GB "
-        f"take {t_bytes:.4f} ms, {flops / 1e9:.3f} GFLOP take {t_ops:.4f} ms); the dense "
-        f"tile products the kernel runs, {dense_flops / 1e9:.3f} GFLOP, take "
-        f"{dense_flops / F32_FLOPS * 1e3:.4f} ms at the f32 peak; card {card}")
+        f"take {t_bytes:.4f} ms, {flops / 1e9:.3f} GFLOP take {t_ops:.4f} ms); its row "
+        f"gather, {gather_bytes / 1e9:.3f} GB, takes {gather_bytes / HBM_BYTES_PER_S * 1e3:.4f} "
+        f"ms from HBM; the dense tile products it skips, {dense_flops / 1e9:.3f} GFLOP, "
+        f"take {dense_flops / F32_FLOPS * 1e3:.4f} ms at the f32 peak; card {card}")
     log(f"[time] scatter_matmul on the residual ({hg.res_edges} edges) {res_ms:.4f} ms; "
         f"train step (batch {BATCH}, 2-layer SAGE + MLP, hybrid) {step_ms:.3f} ms; "
         f"epoch {epoch_s:.3f} s ({steps} steps, sampling included); card {card}")
@@ -840,6 +847,8 @@ def main() -> int:
     for label, g in (("graph", graph), ("graph_t", graph_t)):
         kargs = (g.blk_src, g.blk_local, g.blk_weight, g.blk_rowptr, g.block_rows, n)
         got = sm.scatter_matmul(x, *kargs)
+        require(torch.equal(got, sm.scatter_matmul(x, *kargs)),
+                f"scatter_matmul on {label}: a second launch differs")
         want = sm.scatter_matmul_reference(x, *kargs)
         torch.cuda.synchronize()
         ea, ratio, ok = sum_errors(got, want, abs_sum(g, x))
@@ -960,8 +969,10 @@ def main() -> int:
         f"{nbytes / 1e9:.3f} GB, {flops / 1e9:.3f} GFLOP); no-reuse gather bound "
         f"{gather_ms:.4f} ms; card {card}")
 
-    # Where the kernel's time goes: the hub row-block 0 alone, then every
-    # other row-block alone (a row pointer that empties the rest).
+    # Whether the hub still sets the time: the sub-blocks of row-block 0
+    # alone, then every other row-block's alone (a row pointer that empties
+    # the rest; the kernel reads only sub-blocks [blk_rowptr[0],
+    # blk_rowptr[-1]), so each share runs on its own slots' runs).
     hub_ptr = graph.blk_rowptr.clone()
     hub_ptr[2:] = hub_ptr[1]
     rest_ptr = graph.blk_rowptr.clone()
@@ -970,7 +981,7 @@ def main() -> int:
         cuda_ms(lambda p=p: sm.scatter_matmul(x, *kargs[:3], p, *kargs[4:]), reps=20, runs=5)
         for p in (hub_ptr, rest_ptr)
     ]
-    log(f"[time] scatter_matmul hub row-block 0 alone {split_ms[0]:.4f} ms "
+    log(f"[time] scatter_matmul hub row-block 0's sub-blocks alone {split_ms[0]:.4f} ms "
         f"({hub_share:.1%} of edge slots); all other row-blocks {split_ms[1]:.4f} ms; "
         f"card {card}")
 

@@ -7,8 +7,12 @@ every edge slot e of the sub-blocks of row-block rb:
 
 with output rows no edge reaches equal to zero.  The CUDA kernel
 (``csrc/scatter_matmul.cu``, whose header note gives its design and bound)
-fuses the gather ``x[blk_src]`` that the JAX path materializes; its wrapper
-:func:`scatter_matmul` launches it for CUDA tensors and uses
+cuts the destination-sorted slot array into equal runs, one warp each, so a
+hub row-block no longer serializes; rows that cross runs are summed in a
+second pass in a fixed order, so the result is the same on every launch.
+It fuses the gather ``x[blk_src]`` that the JAX path materializes.  Its
+wrapper :func:`scatter_matmul` launches it for CUDA tensors (``out`` from
+``torch.zeros``, the carries in scratch from ``torch.empty``) and uses
 :func:`scatter_matmul_reference` only for CPU tensors.
 """
 
@@ -24,7 +28,7 @@ __all__ = ["scatter_matmul", "scatter_matmul_reference"]
 # to show that the main path ran through the kernel).
 LAUNCHES = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def scatter_matmul_reference(
@@ -87,7 +91,9 @@ def scatter_matmul(
     out_rows: int,
 ) -> torch.Tensor:
     """Returns (out_rows, D).  CUDA tensors launch the kernel on the current
-    stream; CPU tensors take :func:`scatter_matmul_reference`."""
+    stream; CPU tensors take :func:`scatter_matmul_reference`.  The kernel
+    takes the live slots (weight != 0) in the order ``graph.py`` lays them
+    out: destination rows non-decreasing from slot to slot."""
     global LAUNCHES
     _check(x, blk_src, blk_local, blk_weight, blk_rowptr, block_rows, out_rows)
     if x.device.type == "cpu":
@@ -102,17 +108,23 @@ def scatter_matmul(
     fn = lib.plnlp_scatter_matmul_f32
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
+    nblk, block_edges = blk_src.shape
     d = x.shape[1]
-    out = torch.empty((out_rows, d), dtype=torch.float32, device=x.device)
-    if out_rows == 0 or d == 0:
+    out = torch.zeros((out_rows, d), dtype=torch.float32, device=x.device)
+    run_slots = lib.plnlp_scatter_matmul_run_slots()
+    n_runs = -(-nblk * block_edges // run_slots)
+    if out_rows == 0 or d == 0 or n_runs == 0:
         return out
+    carry = torch.empty((2 * n_runs, d), dtype=torch.float32, device=x.device)
+    run_rows = torch.empty(2 * n_runs, dtype=torch.int32, device=x.device)
+    vec = d % 4 == 0 and x.data_ptr() % 16 == 0
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(
             x.data_ptr(), blk_src.data_ptr(), blk_local.data_ptr(),
             blk_weight.data_ptr(), blk_rowptr.data_ptr(), out.data_ptr(),
-            blk_rowptr.shape[0] - 1, out_rows, block_rows, blk_src.shape[1], d,
-            stream,
+            carry.data_ptr(), run_rows.data_ptr(), blk_rowptr.shape[0] - 1,
+            out_rows, block_rows, nblk, block_edges, d, int(vec), stream,
         )
     _build.check(lib, err, f"scatter_matmul launch (R={block_rows}, D={d})")
     LAUNCHES += 1

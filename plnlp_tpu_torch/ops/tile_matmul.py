@@ -9,9 +9,14 @@ accumulated in f32, with row tiles that no tile reaches equal to zero (the
 TPU kernel leaves them undefined; its callers mask them with ``row_mask``).
 Rows of x past its end read as zero, so x may have num_nodes rows or
 num_nodes rounded up to T.  The CUDA kernel (``csrc/tile_matmul.cu``, whose
-header note gives its design and bound) finds a row tile's tiles through
-``tile_rowptr``; its wrapper :func:`tile_matmul` launches it for CUDA
-tensors and uses :func:`tile_matmul_reference` only for CPU tensors.
+header note gives its design and bound) gives each output row to one warp,
+which reads the row of each of its row tile's tiles once, compacts the
+nonzeros and gathers only their rows of x: the tiles are ~1% full, so it
+does the nonzeros' work and not the dense product's.  A zero of ``vals`` is
+skipped, never multiplied, so unlike the plain version's ``bmm`` it turns
+no ``0 * inf`` into NaN (no caller feeds non-finite x).  Its wrapper
+:func:`tile_matmul` launches it for CUDA tensors and uses
+:func:`tile_matmul_reference` only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ __all__ = ["tile_matmul", "tile_matmul_reference"]
 # to show that the main path ran through the kernel).
 LAUNCHES = 0
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
     ctypes.c_void_p
 ]
 
@@ -89,9 +94,8 @@ def tile_matmul(
         return tile_matmul_reference(vals, tile_row, tile_col, x, n_rowtiles, out_rows)
     if x.device.type != "cuda":
         raise ValueError(f"tile_matmul runs on cuda or cpu, not {x.device}")
-    for name, t in (("vals", vals), ("x", x)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+    if vals.data_ptr() % 16:
+        raise ValueError("vals must be 16-byte aligned")
     from plnlp_tpu_torch import _build
 
     lib = _build.load("tile_matmul")
@@ -103,12 +107,13 @@ def tile_matmul(
     if out_rows == 0 or d == 0:
         return out
     t = vals.shape[1]
+    vec = d % 4 == 0 and x.data_ptr() % 16 == 0
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(
             vals.data_ptr(), int(vals.dtype == torch.int8), tile_col.data_ptr(),
             tile_rowptr.data_ptr(), x.data_ptr(), out.data_ptr(),
-            n_rowtiles, t, x.shape[0], out_rows, d, stream,
+            n_rowtiles, t, x.shape[0], out_rows, d, int(vec), stream,
         )
     _build.check(lib, err, f"tile_matmul launch (T={t}, D={d})")
     LAUNCHES += 1

@@ -37,22 +37,54 @@ def _within_sum_tolerance(got, want, abs_sum):
     return bool(((got - want).abs() <= 1e-5 + 1e-6 * abs_sum).all())
 
 
+def _skewed_graphs(block):
+    """A power-law-like graph for K1's runs: hub row 5 takes 6,000 in-edges
+    (many runs of slots, crossing run boundaries), row-block 2 and the rows
+    from 2,900 on have no edge (an all-padding sub-block, trailing empty
+    rows), and out_rows = 3,000 is less than the row-blocks' 6 x 512 rows."""
+    rng = np.random.default_rng(1)
+    n = 3000
+    dst = np.concatenate([np.full(6000, 5), rng.integers(0, 2900, 20000)])
+    src = rng.integers(0, n, len(dst))
+    keep = (dst < 1024) | (dst >= 1536)
+    w = rng.random(len(dst)).astype(np.float32) + 0.1
+    g = tgraph.build_graph(src[keep], dst[keep], w[keep], num_nodes=n, block=block,
+                           device="cuda")
+    return n, [g]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 100, 256])
-def test_scatter_matmul_matches_plain_version(cuda_graphs, d):
-    n, graphs = cuda_graphs
-    x = torch.randn(n, d, device="cuda")
+@pytest.mark.parametrize("d", [64, 100, 256, 300])
+@pytest.mark.parametrize("kind", ["symmetrized", "skewed-512x512", "skewed-512x48"])
+def test_scatter_matmul_matches_plain_version(cuda_graphs, kind, d):
+    """K1 against its plain version within 1e-5 + 1e-6 sum|w x|; rows no
+    edge reaches exactly zero; a second launch gives the same bits (the
+    carries are summed in a fixed order).  The skewed cases hand x with 37
+    rows more than out_rows, as the hybrid residual does."""
+    if kind == "symmetrized":
+        n, graphs = cuda_graphs
+        x = torch.randn(n, d, device="cuda")
+    else:
+        n, graphs = _skewed_graphs((512, int(kind.split("x")[1])))
+        x = torch.randn(n + 37, d, device="cuda")
     for g in graphs:
         args = (g.blk_src, g.blk_local, g.blk_weight, g.blk_rowptr, g.block_rows, n)
         before = sm.LAUNCHES
         got = sm.scatter_matmul(x, *args)
+        again = sm.scatter_matmul(x, *args)
         torch.cuda.synchronize()
-        assert sm.LAUNCHES == before + 1
+        assert sm.LAUNCHES == before + 2
+        assert torch.equal(got, again)
         want = sm.scatter_matmul_reference(x, *args)
         abs_sum = sm.scatter_matmul_reference(
             x.abs(), g.blk_src, g.blk_local, g.blk_weight.abs(), *args[3:]
         )
+        assert got.shape == (n, d)
         assert _within_sum_tolerance(got, want, abs_sum)
+        empty = (g.in_degrees == 0).nonzero()[:, 0]
+        assert not got[empty].any()
+        if kind != "symmetrized":
+            assert len(empty) >= 600
 
 
 @pytest.mark.cuda
@@ -79,9 +111,14 @@ def _need_cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("fill", ["dense", "sparse"])
 @pytest.mark.parametrize("store", [torch.int8, torch.float32])
-@pytest.mark.parametrize("t,d", [(32, 24), (64, 100), (256, 256), (128, 131)])
-def test_tile_matmul_matches_plain_version(store, t, d):
+@pytest.mark.parametrize("t,d", [(32, 24), (64, 100), (256, 256), (128, 131), (256, 520)])
+def test_tile_matmul_matches_plain_version(store, t, d, fill):
+    """K2 against its plain version within 1e-5 + 1e-6 sum|v x|, on full
+    tiles and on ~1%-full ones (as the hybrid operand builds), with
+    negative values, one all-zero tile, row tiles no tile reaches (zero)
+    and a ragged last x tile; a second launch gives the same bits."""
     _need_cuda()
     gen = torch.Generator(device="cuda").manual_seed(0)
     n_r, nt = 7, 13
@@ -94,12 +131,17 @@ def test_tile_matmul_matches_plain_version(store, t, d):
         vals = torch.randint(-2, 3, (nt, t, t), device="cuda", generator=gen).to(torch.int8)
     else:
         vals = torch.randn(nt, t, t, device="cuda", generator=gen)
+    if fill == "sparse":
+        vals = vals * (torch.rand(nt, t, t, device="cuda", generator=gen) < 0.01).to(vals.dtype)
+    vals[3] = 0
     n_x = n_r * t - 3  # ragged last x tile
     x = torch.randn(n_x, d, device="cuda", generator=gen)
     before = tm.LAUNCHES
     got = tm.tile_matmul(vals, trow, tcol, ptr, x, n_x)
+    again = tm.tile_matmul(vals, trow, tcol, ptr, x, n_x)
     torch.cuda.synchronize()
-    assert tm.LAUNCHES == before + 1
+    assert tm.LAUNCHES == before + 2
+    assert torch.equal(got, again)
     want = tm.tile_matmul_reference(vals, trow, tcol, x, n_r, n_x)
     abs_sum = tm.tile_matmul_reference(vals.float().abs(), trow, tcol, x.abs(), n_r, n_x)
     assert _within_sum_tolerance(got, want, abs_sum)
