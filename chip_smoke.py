@@ -45,7 +45,8 @@ Phases (any failure exits non-zero):
    from the tiles' nonzeros and bytes;
 12. hold the flash attention kernels K3 (forward), K4 (dq) and K5 (dk/dv)
    against their plain versions on the SBM operand's tile sets, with q, k,
-   v, g at the padded-carry n_pad rows (random pad rows, as after layer 1);
+   v, g at the padded-carry n_pad rows (random pad rows, as after layer 1),
+   and require a second launch of K4 and of K5 to give the same bits;
 13. hold ``hybrid_transformer_conv`` (padded-carry) and its input and
    parameter gradients against autograd through the per-edge TRANSFORMER
    path over the plain CSR twin of the same edges;
@@ -55,8 +56,10 @@ Phases (any failure exits non-zero):
    of K3, K4 and K5 per step, 2 of K3 per encode, and none of K1 or K2;
 15. the card-against-CPU step of phase 10 with the TRANSFORMER encoder;
 16. time K3, K4, K5, their plain versions and a TRANSFORMER train step, and
-   reckon each kernel's bound from the tiles' nonzeros and bytes; print one
-   ``{"kernels": [...]}`` line listing K1 to K5;
+   reckon each kernel's bound from the tiles' nonzeros and bytes, with the
+   row gather K4 and K5 add and the dense tile products K3 runs and K4 and
+   K5 skip printed beside it; print one ``{"kernels": [...]}`` line listing
+   K1 to K5;
 17. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX or of the JAX package.
@@ -531,8 +534,10 @@ def check_flash_kernels(fwd_set, bwd_set, q, k, v, g, n):
     """Phase 12: K3, K4 and K5 against their plain versions on the tile
     sets ``fwd_set`` and ``bwd_set`` (vals, tile_row, tile_col,
     tile_rowptr), with q, k, v, g of one (rows, D) shape; rows from ``n``
-    on have no edge and must come out empty.  Returns the stats (M, den, δ)
-    the backward checks used and each kernel's max abs error."""
+    on have no edge and must come out empty; a second launch of K4 and of
+    K5 must give the same bits (each row's sum runs in one order).  Returns
+    the stats (M, den, δ) the backward checks used and each kernel's max
+    abs error."""
     import torch
 
     from plnlp_tpu_torch.ops import flash_tiles as ft
@@ -574,17 +579,22 @@ def check_flash_kernels(fwd_set, bwd_set, q, k, v, g, n):
     stats = torch.stack([m_glob, den_glob, delta], 1).contiguous()
     del num, ml, num_r, num_a, y_err
 
-    # K4, K5: within 1e-5 + 1e-6 Σ|terms|; rows past num_nodes zero
+    # K4, K5: within 1e-5 + 1e-6 Σ|terms|; rows past num_nodes zero; a
+    # second launch bitwise equal
     for kind, tiles, fn, ref in (
         ("dq", fwd_set, ft.flash_tiles_dq, ft.flash_tiles_dq_reference),
         ("dkv", bwd_set, ft.flash_tiles_dkv, ft.flash_tiles_dkv_reference),
     ):
         got = fn(*tiles, q, k, v, g, stats, scale)
+        again = fn(*tiles, q, k, v, g, stats, scale)
         want = ref(*tiles[:3], q, k, v, g, stats, n_r, scale)
         mags = flash_bwd_magnitudes(*tiles[:3], q, k, v, g, stats, scale, kind == "dkv")
         if kind == "dq":
-            got, want = [got], [want]
+            got, again, want = [got], [again], [want]
         torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"[check] flash_tiles_{kind}: a second launch gives the same bits: {same}")
+        require(same, f"flash_tiles_{kind}: a second launch differs")
         errs[kind] = 0.0
         for name, a, b, sc in zip(("dq",) if kind == "dq" else ("dk", "dv"), got, want, mags):
             ea, ratio, ok = sum_errors(a, b, sc)
@@ -594,7 +604,7 @@ def check_flash_kernels(fwd_set, bwd_set, q, k, v, g, n):
                 f"{SUM_RTOL}*sum|terms|) ok={ok}")
             require(ok, f"flash_tiles_{kind} {name} disagrees with its plain version")
             require(not a[n:].any(), f"flash_tiles_{kind} {name}: rows past num_nodes not zero")
-        del got, want, mags
+        del got, again, want, mags
     return stats, errs
 
 
@@ -729,8 +739,10 @@ def transformer_path(args, dev, card, cfg, data, small, gen):
     # read), each (n_pad, 256) f32 input read once and output written once,
     # the stats and the indices; 4, 6 and 8 FLOP per nonzero and feature
     # column (K3: q.k and p v; K4: q.k, g.v and ds k; K5: k.q, v.g, ds q and
-    # a g).  The kernels run the dense tile products (T^2 per tile in place
-    # of the nonzeros), printed beside the bound, not as it.
+    # a g).  Printed beside the bound, not as it: the dense tile products
+    # (T^2 per tile in place of the nonzeros), which K3 runs and K4 and K5
+    # skip, and the row gather K4 and K5 add (two rows of 256 f32 a nonzero,
+    # and K5 the destination's stats).
     nnz = int((hg.tile_vals != 0).sum())
     feat_bytes = n_pad * WIDTH * 4
     idx_bytes = (2 * hg.num_tiles + n_r + 1) * 4
@@ -749,11 +761,18 @@ def transformer_path(args, dev, card, cfg, data, small, gen):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
         bound_ms = max(t_bytes, t_ops)
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        dense_note = (f"the dense tile products the kernel runs, {dense / 1e9:.3f} GFLOP, take "
+                      f"{dense / F32_FLOPS * 1e3:.4f} ms at the f32 peak")
+        if kind != "fwd":
+            gather = nnz * (2 * WIDTH * 4 + (12 if kind == "dkv" else 0))
+            dense_note = (f"its row gather, {gather / 1e9:.3f} GB, takes "
+                          f"{gather / HBM_BYTES_PER_S * 1e3:.4f} ms from HBM; the dense tile "
+                          f"products it skips, {dense / 1e9:.3f} GFLOP, take "
+                          f"{dense / F32_FLOPS * 1e3:.4f} ms at the f32 peak")
         log(f"[time] flash_tiles_{kind} {ms:.4f} ms (q, k, v, g at {n_pad} rows); plain "
             f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e9:.3f} GB take "
             f"{t_bytes:.4f} ms, {flops / 1e9:.3f} GFLOP on {nnz} nonzeros take {t_ops:.4f} ms); "
-            f"the dense tile products the kernel runs, {dense / 1e9:.3f} GFLOP, take "
-            f"{dense / F32_FLOPS * 1e3:.4f} ms at the f32 peak; card {card}")
+            f"{dense_note}; card {card}")
         entries.append({
             "name": f"flash_tiles_{kind}",
             "route": "cuda",

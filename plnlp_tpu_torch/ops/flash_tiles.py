@@ -25,10 +25,14 @@ TPU kernel's first/last-visit flags and its lane-wide stats layouts are not
 needed.  The mask is a select everywhere: pad rows may carry features
 whose masked ``exp`` overflows, and ``0 * inf`` would be NaN.
 
-CUDA tensors launch ``csrc/flash_tiles.cu`` (whose header gives the design
-and the bound); CPU tensors take the ``*_reference`` plain versions, which
-stream the tiles in chunks of 64 so that no (nt, T, T) score tensor or
-(nt, T, D) gather is ever whole.
+CUDA tensors launch ``csrc/flash_tiles.cu``, whose header gives the bound
+and the designs.  K4 and K5 give each output row to one warp: it reads its
+row of each tile once, compacts the nonzeros into a list and gathers only
+their rows (k and v for K4; q, g and the stats for K5), so zeros of
+``vals`` are skipped, never multiplied, and a second launch gives the same
+bits.  K3 still runs the dense tile products.  CPU tensors take the
+``*_reference`` plain versions, which stream the tiles in chunks of 64 so
+that no (nt, T, T) score tensor or (nt, T, D) gather is ever whole.
 """
 
 from __future__ import annotations
@@ -215,6 +219,9 @@ def _launch(kind: str, feats, ptrs, vals, tile_rowptr, scale: float):
     if d % 4 == 0 and any(a.data_ptr() % 16 for a in feats):
         # the kernels stage rows with 16-byte loads when d is a multiple of 4
         raise ValueError("q, k, v (and g) must be 16-byte aligned")
+    if vals.data_ptr() % 16:
+        # K4 and K5 read a tile row's 8 values a lane in one load
+        raise ValueError("vals must be 16-byte aligned")
     from plnlp_tpu_torch import _build
 
     lib = _build.load("flash_tiles")

@@ -184,9 +184,10 @@ def test_hybrid_spmm_gradient_matches_autograd(reorder):
                                  (32, 520)])
 def test_flash_tiles_match_plain_versions(store, t, d):
     """K3, K4, K5 against their plain versions, with chip_smoke's checks
-    (y, m, den of K3; dq, dk, dv within 1e-5 + 1e-6 sum|terms|); row tiles
-    2 and 5 uncovered, the last row tile ragged; d up to 256 takes the
-    resident variant, wider d the chunked one in 256-column slices."""
+    (y, m, den of K3; dq, dk, dv within 1e-5 + 1e-6 sum|terms|, and a
+    second launch of K4 and of K5 bitwise equal); row tiles 2 and 5
+    uncovered, the last row tile ragged; d up to 256 takes K3's resident
+    variant and K4/K5's one-slice path, wider d 256-column slices."""
     _need_cuda()
     import chip_smoke
 
@@ -200,6 +201,18 @@ def test_flash_tiles_match_plain_versions(store, t, d):
         vals = (mask * torch.randint(1, 3, (nt, t, t), device="cuda", generator=gen)).to(torch.int8)
     else:
         vals = mask * torch.randn(nt, t, t, device="cuda", generator=gen)
+    rows = n_r * t - 3
+    q, k, v, g = (torch.randn(rows, d, device="cuda", generator=gen) for _ in range(4))
+    before = dict(ft.LAUNCHES)
+    chip_smoke.check_flash_kernels(*_tile_sets(trow, tcol, vals, n_r), q, k, v, g, rows)
+    assert ft.LAUNCHES == {"fwd": before["fwd"] + 1, "dq": before["dq"] + 2,
+                           "dkv": before["dkv"] + 2}
+
+
+def _tile_sets(trow, tcol, vals, n_r):
+    """The row-sorted tile set of tiles ``vals`` at row tiles ``trow``
+    (sorted) and column tiles ``tcol`` (int32), and its transposed
+    (source-sorted) twin, each as (vals, tile_row, tile_col, tile_rowptr)."""
     order = torch.argsort(tcol.long() * n_r + trow.long(), stable=True)
     vals_t = vals.transpose(1, 2)[order].contiguous()
     trow_t, tcol_t = tcol[order].contiguous(), trow[order].contiguous()
@@ -207,9 +220,45 @@ def test_flash_tiles_match_plain_versions(store, t, d):
     def ptr(rows):
         return torch.cat([rows.new_zeros(1), torch.bincount(rows, minlength=n_r).cumsum(0).int()])
 
+    return (vals, trow, tcol, ptr(trow)), (vals_t, trow_t, tcol_t, ptr(trow_t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", [torch.int8, torch.float32])
+@pytest.mark.parametrize("case,t,d", [("hub", 256, 256), ("hub", 32, 100), ("hub", 16, 520),
+                                      ("full-row", 256, 300), ("full-row", 32, 24),
+                                      ("full-row", 16, 256)])
+def test_flash_backward_compacted_lists(store, case, t, d):
+    """K4 and K5's compacted lists on the shapes that stress them, with
+    chip_smoke's checks (within 1e-5 + 1e-6 sum|terms|, a second launch
+    bitwise equal): a ~1%-full operand whose row tile 0 holds a tile in
+    every column tile (the hub), row tile 2 empty, and edges from and into
+    the rows of the ragged last row tile past `rows` (their terms are 0);
+    "full-row" also fills row 5 of row tile 1's tiles (K4's list for that
+    row takes ~3 T entries, so at T = 256 it drains before it overflows)
+    and column 7 of column tile 2's tiles (K5's list for source row
+    2 T + 7 takes ~4 T)."""
+    _need_cuda()
+    import chip_smoke
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n_r = 7
+    pairs = [(0, c) for c in range(n_r)] + [(1, 1), (1, 2), (1, 6), (3, 0), (4, 4), (5, 2),
+                                             (6, 2), (6, 6)]
+    trow, tcol = torch.tensor(pairs, device="cuda").int().T.contiguous()
+    mask = torch.rand(len(pairs), t, t, device="cuda", generator=gen) < 0.01
+    if case == "full-row":
+        mask[trow == 1, 5, :] = True
+        mask[tcol == 2, :, 7] = True
+    mask[tcol == n_r - 1, t - 3:, t - 1] = True  # from source rows past `rows`
+    mask[trow == n_r - 1, t - 1, :3] = True  # into destination rows past `rows`
+    if store is torch.int8:
+        vals = (mask * torch.randint(1, 3, mask.shape, device="cuda", generator=gen)).to(torch.int8)
+    else:
+        vals = mask * torch.randn(mask.shape, device="cuda", generator=gen)
     rows = n_r * t - 3
     q, k, v, g = (torch.randn(rows, d, device="cuda", generator=gen) for _ in range(4))
     before = dict(ft.LAUNCHES)
-    chip_smoke.check_flash_kernels((vals, trow, tcol, ptr(trow)),
-                                   (vals_t, trow_t, tcol_t, ptr(trow_t)), q, k, v, g, rows)
-    assert ft.LAUNCHES == {key: before[key] + 1 for key in before}
+    chip_smoke.check_flash_kernels(*_tile_sets(trow, tcol, vals, n_r), q, k, v, g, rows)
+    assert ft.LAUNCHES == {"fwd": before["fwd"] + 1, "dq": before["dq"] + 2,
+                           "dkv": before["dkv"] + 2}
