@@ -46,7 +46,7 @@ Phases (any failure exits non-zero):
 12. hold the flash attention kernels K3 (forward), K4 (dq) and K5 (dk/dv)
    against their plain versions on the SBM operand's tile sets, with q, k,
    v, g at the padded-carry n_pad rows (random pad rows, as after layer 1),
-   and require a second launch of K4 and of K5 to give the same bits;
+   and require a second launch of K3, of K4 and of K5 to give the same bits;
 13. hold ``hybrid_transformer_conv`` (padded-carry) and its input and
    parameter gradients against autograd through the per-edge TRANSFORMER
    path over the plain CSR twin of the same edges;
@@ -54,12 +54,16 @@ Phases (any failure exits non-zero):
    for one ``train_epoch`` over the hybrid operand, then ``Model.test`` and
    ``Scorer.score`` on 65,536 pairs; the counts must show 2 launches each
    of K3, K4 and K5 per step, 2 of K3 per encode, and none of K1 or K2;
+   ``rank_candidates_batch(exclude_edges=True)`` for 300 sources over the
+   hybrid operand with ``exclude_graph`` its CSR twin must return no known
+   neighbor and finite scores, and without ``exclude_graph`` it must raise
+   the ValueError that names it;
 15. the card-against-CPU step of phase 10 with the TRANSFORMER encoder;
-16. time K3, K4, K5, their plain versions and a TRANSFORMER train step, and
-   reckon each kernel's bound from the tiles' nonzeros and bytes, with the
-   row gather K4 and K5 add and the dense tile products K3 runs and K4 and
-   K5 skip printed beside it; print one ``{"kernels": [...]}`` line listing
-   K1 to K5;
+16. time K3, K4, K5, their plain versions, a TRANSFORMER train step and a
+   TRANSFORMER encode, and reckon each kernel's bound from the tiles'
+   nonzeros and bytes, with the row gather each adds and the dense tile
+   products each skips printed beside it; print one ``{"kernels": [...]}``
+   line listing K1 to K5;
 17. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX or of the JAX package.
@@ -530,14 +534,33 @@ def flash_bwd_magnitudes(vals, tile_row, tile_col, q, k, v, g, stats, scale, tra
     return [o.reshape(-1, d)[:rows] for o in out]
 
 
+def fwd_errors(num, ml, num_r, ml_r, num_a):
+    """K3's (num, ml) against the plain version's (num_r, ml_r), with
+    ``num_a`` the plain num over |v|: (max error / tolerance over y = num /
+    den, m and den; whether the rows without a tile edge are exactly
+    (0, 0, -inf); the mask of the rows with one)."""
+    import torch
+
+    has = ml_r[:, 1] > 0
+    den_r = ml_r[:, 1].clamp(min=1e-30)[:, None]
+    y_err = ((num / ml[:, 1:].clamp(min=1e-30) - num_r / den_r).abs()[has]
+             / (SUM_ATOL + SUM_RTOL * num_a / den_r)[has])
+    m_err = (ml[has, 0] - ml_r[has, 0]).abs() / (1e-6 * (1 + ml_r[has, 0].abs()))
+    den_err = (ml[has, 1] - ml_r[has, 1]).abs() / (1e-5 * ml_r[has, 1])
+    ratio = max(float(y_err.max()), float(m_err.max()), float(den_err.max()))
+    empty_ok = (not num[~has].any() and not ml[~has, 1].any()
+                and bool(torch.isneginf(ml[~has, 0]).all()))
+    return ratio, empty_ok, has
+
+
 def check_flash_kernels(fwd_set, bwd_set, q, k, v, g, n):
     """Phase 12: K3, K4 and K5 against their plain versions on the tile
     sets ``fwd_set`` and ``bwd_set`` (vals, tile_row, tile_col,
     tile_rowptr), with q, k, v, g of one (rows, D) shape; rows from ``n``
-    on have no edge and must come out empty; a second launch of K4 and of
-    K5 must give the same bits (each row's sum runs in one order).  Returns
-    the stats (M, den, δ) the backward checks used and each kernel's max
-    abs error."""
+    on have no edge and must come out empty; a second launch of K3, of K4
+    and of K5 must give the same bits (each row's sum runs in one order).
+    Returns the stats (M, den, δ) the backward checks used and each
+    kernel's max abs error."""
     import torch
 
     from plnlp_tpu_torch.ops import flash_tiles as ft
@@ -551,18 +574,14 @@ def check_flash_kernels(fwd_set, bwd_set, q, k, v, g, n):
     # den within 1e-5 relative (a sum of positive terms); rows with no tile
     # edge, the pad rows among them, exactly (0, 0, -inf)
     num, ml = ft.flash_tiles_fwd(*fwd_set, q, k, v, scale)
+    again = ft.flash_tiles_fwd(*fwd_set, q, k, v, scale)
     num_r, ml_r = ft.flash_tiles_fwd_reference(*fwd_set[:3], q, k, v, n_r, scale)
     num_a, _ = ft.flash_tiles_fwd_reference(*fwd_set[:3], q, k, v.abs(), n_r, scale)
     torch.cuda.synchronize()
-    has = ml_r[:, 1] > 0
-    den_r = ml_r[:, 1].clamp(min=1e-30)[:, None]
-    y_err = ((num / ml[:, 1:].clamp(min=1e-30) - num_r / den_r).abs()[has]
-             / (SUM_ATOL + SUM_RTOL * num_a / den_r)[has])
-    m_err = (ml[has, 0] - ml_r[has, 0]).abs() / (1e-6 * (1 + ml_r[has, 0].abs()))
-    den_err = (ml[has, 1] - ml_r[has, 1]).abs() / (1e-5 * ml_r[has, 1])
-    ratio = max(float(y_err.max()), float(m_err.max()), float(den_err.max()))
-    empty_ok = (not num[~has].any() and not ml[~has, 1].any()
-                and bool(torch.isneginf(ml[~has, 0]).all()))
+    same = torch.equal(num, again[0]) and torch.equal(ml, again[1])
+    log(f"[check] flash_tiles_fwd: a second launch gives the same bits: {same}")
+    require(same, "flash_tiles_fwd: a second launch differs")
+    ratio, empty_ok, has = fwd_errors(num, ml, num_r, ml_r, num_a)
     errs["fwd"] = float((num - num_r).abs().max())
     log(f"[check] flash_tiles_fwd (K3) on tile_vals at {n_pad} rows: max_abs num "
         f"{errs['fwd']:.3e}; max err/tol {ratio:.3f} (y {SUM_ATOL} + {SUM_RTOL}*sum p|v|/den, "
@@ -577,7 +596,7 @@ def check_flash_kernels(fwd_set, bwd_set, q, k, v, g, n):
     den_glob = ml_r[:, 1].clamp(min=torch.finfo(torch.float32).tiny)
     delta = (g * num_r / den_glob[:, None]).sum(-1)
     stats = torch.stack([m_glob, den_glob, delta], 1).contiguous()
-    del num, ml, num_r, num_a, y_err
+    del num, ml, again, num_r, num_a
 
     # K4, K5: within 1e-5 + 1e-6 Σ|terms|; rows past num_nodes zero; a
     # second launch bitwise equal
@@ -697,21 +716,45 @@ def transformer_path(args, dev, card, cfg, data, small, gen):
             f"{epoch} launches in {steps} steps (want 2 of each a step)")
     require(tm.LAUNCHES == 0 and sm.LAUNCHES == 0, "K1/K2 launched on the TRANSFORMER path")
     ft.LAUNCHES.update(fwd=0, dq=0, dkv=0)
+    t0 = time.perf_counter()
     hits = model.test(hg, None, None, data["split"], "hits")
     torch.cuda.synchronize()
+    test_ms = (time.perf_counter() - t0) * 1e3
     test = dict(ft.LAUNCHES)
     require(test == {"fwd": 2, "dq": 0, "dkv": 0}, f"{test} launches in one encode")
     require(all(0.0 <= v <= 1.0 for pair in hits.values() for v in pair), f"hits {hits}")
     ft.LAUNCHES.update(fwd=0, dq=0, dkv=0)
-    pairs = np.random.default_rng(args.seed).integers(0, n, (65_536, 2))
-    scores = Scorer(model, hg).score(pairs)
+    rng = np.random.default_rng(args.seed)
+    pairs = rng.integers(0, n, (65_536, 2))
+    scorer = Scorer(model, hg, exclude_graph=data["sample_graph"])
+    scores = scorer.score(pairs)
     torch.cuda.synchronize()
     serve = dict(ft.LAUNCHES)
     require(serve == {"fwd": 2, "dq": 0, "dkv": 0}, f"{serve} launches in the Scorer's encode")
     require(scores.shape == (65_536,) and np.isfinite(scores).all(), "TRANSFORMER scores")
     require(tm.LAUNCHES == 0 and sm.LAUNCHES == 0, "K1/K2 launched by the TRANSFORMER encode")
-    log(f"[transformer] Model.test: {test} launches; {json.dumps(hits)}; Scorer.score on 65536 "
-        f"pairs finite, {serve} launches")
+    # ranking over the hybrid operand excludes the known edges of its CSR
+    # twin; without exclude_graph it must refuse
+    srcs = rng.integers(0, n, 300)
+    ids, top = scorer.rank_candidates_batch(srcs, k=50, exclude_edges=True)
+    require(ids.shape == (300, 50) and np.isfinite(top).all(), "TRANSFORMER rank")
+    sg = data["sample_graph"]
+    indptr, senders = sg.indptr.cpu().numpy(), sg.senders.cpu().numpy()
+    for row, s in zip(ids, srcs):
+        require(not set(row.tolist()) & set(senders[indptr[s]:indptr[s + 1]].tolist()),
+                f"a known neighbor of {s} ranked")
+    try:
+        Scorer(model, hg).rank_candidates_batch(srcs[:4], k=50, exclude_edges=True)
+        refused = False
+    except ValueError as exc:
+        refused = "exclude_graph" in str(exc)
+    require(refused, "Scorer over the hybrid operand without exclude_graph did not refuse "
+                     "exclude_edges with a ValueError naming exclude_graph")
+    log(f"[transformer] Model.test: {test} launches, {test_ms:.1f} ms (host clock, the encode and "
+        f"the valid and test pairs); {json.dumps(hits)}; Scorer.score on 65536 "
+        f"pairs finite, {serve} launches; rank 300 sources k=50 over the hybrid operand, known "
+        f"neighbors (exclude_graph = the CSR twin) excluded, scores finite; without "
+        f"exclude_graph: ValueError")
 
     # 15. the card against the CPU ------------------------------------------
     card_vs_cpu_step(cfg, small, args, dev)
@@ -724,6 +767,7 @@ def transformer_path(args, dev, card, cfg, data, small, gen):
         lambda: model.train_step(opt, hg, None, None, pos_b, neg_b, None, ones, cfg.lr),
         reps=3, runs=3,
     )
+    encode_ms = cuda_ms(lambda: model.encode(hg), reps=3, runs=3)
     scale = 1.0 / math.sqrt(WIDTH)
     n_r = n_pad // TILE
     calls = {
@@ -740,9 +784,9 @@ def transformer_path(args, dev, card, cfg, data, small, gen):
     # the stats and the indices; 4, 6 and 8 FLOP per nonzero and feature
     # column (K3: q.k and p v; K4: q.k, g.v and ds k; K5: k.q, v.g, ds q and
     # a g).  Printed beside the bound, not as it: the dense tile products
-    # (T^2 per tile in place of the nonzeros), which K3 runs and K4 and K5
-    # skip, and the row gather K4 and K5 add (two rows of 256 f32 a nonzero,
-    # and K5 the destination's stats).
+    # (T^2 per tile in place of the nonzeros), which the kernels skip, and
+    # the row gather they add (two rows of 256 f32 a nonzero: k and v for K3
+    # and K4, q and g for K5 with the destination's stats).
     nnz = int((hg.tile_vals != 0).sum())
     feat_bytes = n_pad * WIDTH * 4
     idx_bytes = (2 * hg.num_tiles + n_r + 1) * 4
@@ -761,18 +805,13 @@ def transformer_path(args, dev, card, cfg, data, small, gen):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
         bound_ms = max(t_bytes, t_ops)
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        dense_note = (f"the dense tile products the kernel runs, {dense / 1e9:.3f} GFLOP, take "
-                      f"{dense / F32_FLOPS * 1e3:.4f} ms at the f32 peak")
-        if kind != "fwd":
-            gather = nnz * (2 * WIDTH * 4 + (12 if kind == "dkv" else 0))
-            dense_note = (f"its row gather, {gather / 1e9:.3f} GB, takes "
-                          f"{gather / HBM_BYTES_PER_S * 1e3:.4f} ms from HBM; the dense tile "
-                          f"products it skips, {dense / 1e9:.3f} GFLOP, take "
-                          f"{dense / F32_FLOPS * 1e3:.4f} ms at the f32 peak")
+        gather = nnz * (2 * WIDTH * 4 + (12 if kind == "dkv" else 0))
         log(f"[time] flash_tiles_{kind} {ms:.4f} ms (q, k, v, g at {n_pad} rows); plain "
             f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e9:.3f} GB take "
             f"{t_bytes:.4f} ms, {flops / 1e9:.3f} GFLOP on {nnz} nonzeros take {t_ops:.4f} ms); "
-            f"{dense_note}; card {card}")
+            f"its row gather, {gather / 1e9:.3f} GB, takes {gather / HBM_BYTES_PER_S * 1e3:.4f} "
+            f"ms from HBM; the dense tile products it skips, {dense / 1e9:.3f} GFLOP, take "
+            f"{dense / F32_FLOPS * 1e3:.4f} ms at the f32 peak; card {card}")
         entries.append({
             "name": f"flash_tiles_{kind}",
             "route": "cuda",
@@ -792,7 +831,8 @@ def transformer_path(args, dev, card, cfg, data, small, gen):
             "library_ms": None,
         })
     log(f"[time] TRANSFORMER train step (batch {BATCH}, 2 layers + MLP, hybrid) {step_ms:.3f} ms; "
-        f"epoch {epoch_s:.3f} s ({steps} steps, sampling included); card {card}")
+        f"epoch {epoch_s:.3f} s ({steps} steps, sampling included); encode {encode_ms:.3f} ms; "
+        f"card {card}")
     return entries
 
 

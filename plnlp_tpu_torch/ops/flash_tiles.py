@@ -26,13 +26,13 @@ needed.  The mask is a select everywhere: pad rows may carry features
 whose masked ``exp`` overflows, and ``0 * inf`` would be NaN.
 
 CUDA tensors launch ``csrc/flash_tiles.cu``, whose header gives the bound
-and the designs.  K4 and K5 give each output row to one warp: it reads its
-row of each tile once, compacts the nonzeros into a list and gathers only
-their rows (k and v for K4; q, g and the stats for K5), so zeros of
-``vals`` are skipped, never multiplied, and a second launch gives the same
-bits.  K3 still runs the dense tile products.  CPU tensors take the
-``*_reference`` plain versions, which stream the tiles in chunks of 64 so
-that no (nt, T, T) score tensor or (nt, T, D) gather is ever whole.
+and the design.  Each kernel gives each output row to one warp: it reads
+its row of each tile once, compacts the nonzeros into a list and gathers
+only their rows (k and v for K3 and K4; q, g and the stats for K5), so
+zeros of ``vals`` are skipped, never multiplied, and a second launch gives
+the same bits.  CPU tensors take the ``*_reference`` plain versions, which
+stream the tiles in chunks of 64 so that no (nt, T, T) score tensor or
+(nt, T, D) gather is ever whole.
 """
 
 from __future__ import annotations

@@ -26,16 +26,19 @@ class Scorer:
     """Frozen-model pair scorer over a cached full-graph encoding.
 
     ``graph``/``graph_t``/``node_feats`` must match what the model was
-    trained with; ``exclude_edges=True`` filters out ``graph``'s edges.
+    trained with.  ``exclude_edges=True`` filters out the edges of
+    ``exclude_graph``, a CSR :class:`Graph` that defaults to ``graph``;
+    over a ``HybridGraph`` pass its CSR twin (the sampler's graph).
     """
 
     # Upper bound on the S×C pair grid scored per pass (sources are chunked
     # to stay under it): 8M pairs = 32 MB of f32 scores.
     _MAX_GRID_PAIRS = 8 * 1024 * 1024
 
-    def __init__(self, model: Model, graph: Graph, graph_t=None, node_feats=None):
+    def __init__(self, model: Model, graph, graph_t=None, node_feats=None,
+                 exclude_graph: Optional[Graph] = None):
         self.model = model
-        self.graph = graph
+        self.exclude_graph = exclude_graph if exclude_graph is not None else graph
         self.h = model.encode(graph, graph_t, node_feats)
 
     def score(self, pairs) -> np.ndarray:
@@ -59,9 +62,15 @@ class Scorer:
 
     def _neighbor_mask(self, candidates: np.ndarray):
         """``mask(srcs, scores)`` setting known-edge candidate columns of
-        ``scores`` (S, C) to -inf, from the graph's CSR: the senders of each
-        source's in-edges (its neighbors on a symmetric graph)."""
-        g = self.graph
+        ``scores`` (S, C) to -inf, from ``exclude_graph``'s CSR: the senders
+        of each source's in-edges (its neighbors on a symmetric graph)."""
+        g = self.exclude_graph
+        if not isinstance(g, Graph):
+            raise ValueError(
+                f"exclude_edges needs a CSR Graph to read known edges from; got "
+                f"{type(g).__name__}: pass exclude_graph= to Scorer (e.g. the CSR "
+                f"twin of a HybridGraph)"
+            )
         n = self.model.num_nodes
         c = len(candidates)
         cand_pos = None

@@ -185,9 +185,9 @@ def test_hybrid_spmm_gradient_matches_autograd(reorder):
 def test_flash_tiles_match_plain_versions(store, t, d):
     """K3, K4, K5 against their plain versions, with chip_smoke's checks
     (y, m, den of K3; dq, dk, dv within 1e-5 + 1e-6 sum|terms|, and a
-    second launch of K4 and of K5 bitwise equal); row tiles 2 and 5
-    uncovered, the last row tile ragged; d up to 256 takes K3's resident
-    variant and K4/K5's one-slice path, wider d 256-column slices."""
+    second launch of each bitwise equal); row tiles 2 and 5 uncovered, the
+    last row tile ragged; d up to 256 takes the one-slice path of each
+    kernel, wider d 256-column slices."""
     _need_cuda()
     import chip_smoke
 
@@ -205,7 +205,7 @@ def test_flash_tiles_match_plain_versions(store, t, d):
     q, k, v, g = (torch.randn(rows, d, device="cuda", generator=gen) for _ in range(4))
     before = dict(ft.LAUNCHES)
     chip_smoke.check_flash_kernels(*_tile_sets(trow, tcol, vals, n_r), q, k, v, g, rows)
-    assert ft.LAUNCHES == {"fwd": before["fwd"] + 1, "dq": before["dq"] + 2,
+    assert ft.LAUNCHES == {"fwd": before["fwd"] + 2, "dq": before["dq"] + 2,
                            "dkv": before["dkv"] + 2}
 
 
@@ -231,9 +231,10 @@ def _tile_sets(trow, tcol, vals, n_r):
 def test_flash_backward_compacted_lists(store, case, t, d):
     """K4 and K5's compacted lists on the shapes that stress them, with
     chip_smoke's checks (within 1e-5 + 1e-6 sum|terms|, a second launch
-    bitwise equal): a ~1%-full operand whose row tile 0 holds a tile in
-    every column tile (the hub), row tile 2 empty, and edges from and into
-    the rows of the ragged last row tile past `rows` (their terms are 0);
+    of each kernel bitwise equal; K3 is checked alongside): a ~1%-full
+    operand whose row tile 0 holds a tile in every column tile (the hub),
+    row tile 2 empty, and edges from and into the rows of the ragged last
+    row tile past `rows` (K4's and K5's terms there are 0; K3 counts them);
     "full-row" also fills row 5 of row tile 1's tiles (K4's list for that
     row takes ~3 T entries, so at T = 256 it drains before it overflows)
     and column 7 of column tile 2's tiles (K5's list for source row
@@ -260,5 +261,54 @@ def test_flash_backward_compacted_lists(store, case, t, d):
     q, k, v, g = (torch.randn(rows, d, device="cuda", generator=gen) for _ in range(4))
     before = dict(ft.LAUNCHES)
     chip_smoke.check_flash_kernels(*_tile_sets(trow, tcol, vals, n_r), q, k, v, g, rows)
-    assert ft.LAUNCHES == {"fwd": before["fwd"] + 1, "dq": before["dq"] + 2,
+    assert ft.LAUNCHES == {"fwd": before["fwd"] + 2, "dq": before["dq"] + 2,
                            "dkv": before["dkv"] + 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", [torch.int8, torch.float32])
+@pytest.mark.parametrize("t,d", [(256, 256), (256, 520), (32, 100)])
+def test_flash_forward_compacted_lists(store, t, d):
+    """K3's compacted lists, with chip_smoke's checks (y, m, den against the
+    plain version, rows without an edge exactly (0, 0, -inf), a second
+    launch bitwise equal): row tile 4's only tile takes its edges from the
+    three sources past `rows` alone, so its rows with an edge come out
+    m = 0, den = their edge count, num = 0 exactly (the features read as
+    zero, but each edge counts in den); row 5 of row tile 1 is full in all
+    three of its tiles (at T = 256 its list overflows and drains twice);
+    row tile 2 holds no tile; d = 520 takes three 256-column slices, each
+    of which must give the same m and den."""
+    _need_cuda()
+    import chip_smoke
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n_r = 7
+    pairs = [(0, 0), (0, 3), (1, 1), (1, 2), (1, 6), (3, 0), (4, 6), (5, 5), (6, 6)]
+    trow, tcol = torch.tensor(pairs, device="cuda").int().T.contiguous()
+    mask = torch.rand(len(pairs), t, t, device="cuda", generator=gen) < 0.05
+    mask[trow == 1, 5, :] = True
+    past = (trow == 4).nonzero()[0, 0]
+    mask[past] = False
+    mask[past, : t // 2, t - 3:] = torch.rand(t // 2, 3, device="cuda", generator=gen) < 0.7
+    mask[past, 0, t - 1] = True
+    if store is torch.int8:
+        vals = (mask * torch.randint(1, 3, mask.shape, device="cuda", generator=gen)).to(torch.int8)
+    else:
+        vals = mask * torch.randn(mask.shape, device="cuda", generator=gen)
+    rows = n_r * t - 3
+    q, k, v, g = (torch.randn(rows, d, device="cuda", generator=gen) for _ in range(4))
+    fwd_set, bwd_set = _tile_sets(trow, tcol, vals, n_r)
+    before = dict(ft.LAUNCHES)
+    chip_smoke.check_flash_kernels(fwd_set, bwd_set, q, k, v, g, rows)
+    num, ml = ft.flash_tiles_fwd(*fwd_set, q, k, v, 1.0 / d ** 0.5)
+    torch.cuda.synchronize()
+    assert ft.LAUNCHES == {"fwd": before["fwd"] + 3, "dq": before["dq"] + 2,
+                           "dkv": before["dkv"] + 2}
+    count = mask[past].sum(1).float()
+    has = count > 0
+    block = slice(4 * t, 5 * t)
+    assert int(has.sum()) > 0
+    assert torch.equal(ml[block][has], torch.stack([torch.zeros_like(count), count], 1)[has])
+    assert not num[block].any()
+    assert torch.isneginf(ml[block][~has, 0]).all() and not ml[block][~has, 1].any()
+    assert torch.isneginf(ml[2 * t: 3 * t, 0]).all() and not ml[2 * t: 3 * t, 1].any()

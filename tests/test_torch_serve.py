@@ -18,6 +18,7 @@ import torch
 
 import plnlp_tpu.graph as jgraph
 import plnlp_tpu.metrics as jmetrics
+import plnlp_tpu.ops.tile_spmm as jts
 from plnlp_tpu.models.predictors import apply_predictor
 from plnlp_tpu.models.predictors import grid_scores as jax_grid_scores
 from plnlp_tpu.models.predictors import init_predictor
@@ -27,7 +28,9 @@ from plnlp_tpu.training import ModelConfig as JaxConfig
 from plnlp_tpu_torch import graph as tgraph
 from plnlp_tpu_torch import metrics as tmetrics
 from plnlp_tpu_torch.convert import params_from_jax
+from plnlp_tpu_torch.data.synthetic import make_sbm_graph
 from plnlp_tpu_torch.models.predictors import Predictor, grid_scores
+from plnlp_tpu_torch.ops import tile_spmm as tts
 from plnlp_tpu_torch.serve import Scorer
 from plnlp_tpu_torch.training import Model, ModelConfig
 
@@ -222,6 +225,44 @@ def test_scorer_exclude_edges_and_chunking(rng, monkeypatch):
     ids_c, scores_c = ts.rank_candidates_batch(srcs, k=10, exclude_edges=True)
     np.testing.assert_array_equal(ids_c, ids)
     np.testing.assert_allclose(scores_c, scores, rtol=1e-6)
+
+
+def test_scorer_excludes_edges_over_hybrid_matches_jax(rng):
+    """Over the hybrid operand (a 600-node SBM at T = 32, relabeled to
+    community order as the CLI builds it) the Scorer reads the known edges
+    from ``exclude_graph``, the CSR twin, as the JAX Scorer does; without it
+    ranking with ``exclude_edges=True`` raises a ValueError naming it."""
+    n = 600
+    src, dst = make_sbm_graph(np.random.default_rng(5), n, 6000, num_communities=12)
+    src, dst, _ = tgraph.to_undirected_edges(src, dst, None, n)
+    relabel = np.empty(n, np.int64)
+    relabel[tts.label_prop_order(src, dst, n)] = np.arange(n)
+    src, dst = relabel[src], relabel[dst]
+    kw = dict(num_nodes=n, tile=32, min_fill=12, block=(32, 64), reorder=None)
+    th, jh = tts.build_hybrid(src, dst, device="cpu", **kw), jts.build_hybrid(src, dst, **kw)
+    assert th.num_tiles > 0 and th.res_edges > 0
+    tg, _ = tgraph.prepare_graph(src, dst, None, num_nodes=n, block=None, device="cpu")
+    jg, _ = jgraph.prepare_graph(src, dst, None, num_nodes=n, block=None)
+    cfg = dict(encoder="SAGE", predictor="DOT", emb_hidden_channels=W, gnn_hidden_channels=W,
+               mlp_hidden_channels=W)
+    jm = JaxModel(JaxConfig(**cfg), num_nodes=n)
+    jp = jm.init_params(jax.random.PRNGKey(3))
+    tm = Model(ModelConfig(**cfg), num_nodes=n, device="cpu")
+    params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tm)
+    js, ts = JaxScorer(jm, jp, jh, exclude_graph=jg), Scorer(tm, th, exclude_graph=tg)
+    srcs = rng.integers(0, n, 12)
+    cands = rng.permutation(n)[:90]
+    indptr, senders = tg.indptr.numpy(), tg.senders.numpy()
+    for kw in (dict(k=8), dict(candidates=cands, k=6)):
+        got = ts.rank_candidates_batch(srcs, exclude_edges=True, **kw)
+        _assert_topk_equal(got, js.rank_candidates_batch(srcs, exclude_edges=True, **kw), True)
+        for row, s in zip(got[0], srcs):
+            assert not set(row.tolist()) & set(senders[indptr[s]:indptr[s + 1]].tolist())
+    ts_hg = Scorer(tm, th)
+    np.testing.assert_allclose(ts_hg.score(np.stack([srcs, srcs[::-1]], 1)),
+                               js.score(np.stack([srcs, srcs[::-1]], 1)), **TOL)
+    with pytest.raises(ValueError, match="exclude_graph"):
+        ts_hg.rank_candidates_batch(srcs, k=8, exclude_edges=True)
 
 
 def test_params_from_jax_rejects_mismatches():
