@@ -64,7 +64,24 @@ Phases (any failure exits non-zero):
    nonzeros and bytes, with the row gather each adds and the dense tile
    products each skips printed beside it; print one ``{"kernels": [...]}``
    line listing K1 to K5;
-17. print ``{"ok": true, "device": {...}}`` as the last line.
+17. the training CLI, ``plnlp_tpu_torch.cli.main`` in-process, on the
+   reference README's ogbl-collab command over blocked CSR at collab's
+   size (235,868 nodes, 1,179,052 drawn edges with weights and years,
+   ``--year 2010 --use_valedges_as_input True``): 2 epochs with a
+   checkpoint each, JSON-lines metrics and a profiler trace of epoch 2
+   whose top 10 device ops it logs; K1 must launch 4 times a step and 2
+   times a ``Model.test``.  Then ``--epochs 3 --resume True``: one epoch,
+   from parameters with the checkpoint's bits.  Then ``--score_pairs`` on
+   65,536 pairs (2 K1 launches), equal to ``Scorer.from_checkpoint``;
+18. the CLI on the README's ogbl-ddi command (width 512, 3 negatives) at
+   ddi's size (4,267 nodes, 1,067,911 drawn edges): ``auto`` takes the
+   dense backend, one epoch with a finite loss and no K1-K5 launch;
+19. the CLI with TRANSFORMER on a 200-community SBM (60,000 nodes,
+   300,000 edges): ``auto`` must choose hybrid (id space relabeled), K3,
+   K4 and K5 launch 2 times a step (K3 2 more per ``Model.test``); then
+   ``--score_pairs`` over the hybrid operand with pairs in original ids,
+   equal to the restored Scorer's scores on the relabeled ids;
+20. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -72,13 +89,16 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -95,6 +115,12 @@ MIN_FILL = 96  # --tile_min_fill
 AUTO_COVERAGE = 0.35  # --tile_auto_coverage
 BATCH = 65_536  # --batch_size
 SMALL = 10  # the card-vs-CPU step runs at 1/SMALL of the size
+# The CLI phases: ogbl-ddi's size for the dense backend; a 200-community
+# SBM (300 nodes a community, as collab's 800-community SBM) for
+# TRANSFORMER over hybrid; pairs scored by --score_pairs.
+DDI_NODES, DDI_EDGES = 4_267, 1_067_911
+SBM_NODES, SBM_EDGES, SBM_COMMUNITIES = 60_000, 300_000, 200
+CLI_PAIRS = 65_536
 TOL = 1e-4  # rtol = atol for values that are not long sums (h, scores)
 # A kernel output is a sum of up to max_degree (26k here) f32 terms, added in
 # another order than the plain version adds them (K1's runs and carries, K2's
@@ -836,6 +862,257 @@ def transformer_path(args, dev, card, cfg, data, small, gen):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# The training CLI
+# ---------------------------------------------------------------------------
+
+
+class _Tee:
+    """stdout that is also kept, so the CLI's log can be checked."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.out.write(text)
+        self.parts.append(text)
+        return len(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def lines(self):
+        return "".join(self.parts).splitlines()
+
+
+@contextlib.contextmanager
+def watch_cli():
+    """Count ``Model.train_step``, ``train_epoch`` and ``test`` calls, keep
+    the parameters the first ``train_epoch`` starts from, tee stdout, and
+    zero every kernel's launch count; yields a dict that holds, after the
+    block, the launches made in it."""
+    import torch
+
+    from plnlp_tpu_torch.ops import flash_tiles as ft
+    from plnlp_tpu_torch.ops import scatter_matmul as sm
+    from plnlp_tpu_torch.ops import tile_matmul as tm
+    from plnlp_tpu_torch.training import Model
+
+    seen = {"steps": 0, "epochs": 0, "tests": 0, "first_params": None}
+    orig = {name: getattr(Model, name) for name in ("train_step", "train_epoch", "test")}
+
+    def train_step(self, *a, **kw):
+        seen["steps"] += 1
+        return orig["train_step"](self, *a, **kw)
+
+    def train_epoch(self, *a, **kw):
+        if seen["first_params"] is None:
+            seen["first_params"] = {k: v.detach().cpu().clone() for k, v in self.state_dict().items()}
+        seen["epochs"] += 1
+        return orig["train_epoch"](self, *a, **kw)
+
+    def test(self, *a, **kw):
+        seen["tests"] += 1
+        return orig["test"](self, *a, **kw)
+
+    tee = _Tee(sys.stdout)
+    Model.train_step, Model.train_epoch, Model.test = train_step, train_epoch, test
+    torch.cuda.synchronize()
+    sm.LAUNCHES = tm.LAUNCHES = 0
+    ft.LAUNCHES.update(fwd=0, dq=0, dkv=0)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(tee):
+            yield seen
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in orig.items():
+            setattr(Model, name, fn)
+    seen["seconds"] = time.perf_counter() - t0
+    seen["launches"] = {"K1": sm.LAUNCHES, "K2": tm.LAUNCHES, "K3": ft.LAUNCHES["fwd"],
+                        "K4": ft.LAUNCHES["dq"], "K5": ft.LAUNCHES["dkv"]}
+    seen["lines"] = tee.lines()
+
+
+def _only(launches, **want):
+    """The launch counts, with every kernel not named required to be 0."""
+    return {k: want.get(k, 0) for k in launches}
+
+
+def check_cli_scores(cli, argv, ckpt, pairs, scores, label):
+    """``scores`` (from ``--score_pairs``) against the Scorer restored from
+    ``ckpt`` over the operand the serving run builds, on the pairs mapped
+    through the trained run's relabel; the same computation, so within
+    1e-6."""
+    from plnlp_tpu_torch.serve import Scorer
+
+    exp = cli.prepare_experiment(cli.argument(argv), log=lambda *_: None, serving=True)
+    want = Scorer.from_checkpoint(
+        exp["model"], ckpt, exp["graph"], exp["graph_t"], exp["node_feats"]
+    ).score(pairs if exp["node_relabel"] is None else exp["node_relabel"][pairs])
+    err = float(np.abs(scores - want).max())
+    require(scores.shape == (len(pairs),) and np.isfinite(scores).all(), f"{label} scores")
+    require(np.allclose(scores, want, rtol=1e-6, atol=1e-6),
+            f"{label}: --score_pairs vs the restored Scorer max_abs {err:.3e}")
+    return exp["node_relabel"], err
+
+
+def cli_path(args, dev, card, tmp):
+    """Phases 17-19; returns the launches of K1-K5 in them."""
+    import torch
+
+    from plnlp_tpu_torch import cli
+    from plnlp_tpu_torch.checkpoint import CheckpointManager
+    from plnlp_tpu_torch.profiling import summarize_trace
+
+    total = dict.fromkeys(("K1", "K2", "K3", "K4", "K5"), 0)
+    rng = np.random.default_rng(args.seed)
+    t_phases = time.perf_counter()
+
+    # 17. the collab command over blocked CSR ------------------------------
+    ck, mf, pd = (os.path.join(tmp, name) for name in ("collab_ck", "collab.jsonl", "trace"))
+    collab = [
+        "--data_name",
+        f"synthetic:hits:num_nodes={N_NODES},num_edges={N_EDGES},weighted=1,with_year=1",
+        "--predictor", "DOT", "--use_valedges_as_input", "True", "--year", "2010",
+        "--eval_last_best", "True", "--dropout", "0.3", "--adj_backend", "csr",
+        "--eval_steps", "1", "--runs", "1", "--checkpoint_dir", ck, "--checkpoint_every", "1",
+        "--metrics_file", mf, "--profile_dir", pd, "--seed", str(args.seed),
+    ]
+    with watch_cli() as a:
+        loggers = cli.main(collab + ["--epochs", "2"])
+    steps, tests = a["steps"], a["tests"]
+    require(a["epochs"] == 2 and tests == 2, f"collab: {a['epochs']} epochs, {tests} tests")
+    require(a["launches"] == _only(a["launches"], K1=4 * steps + 2 * tests),
+            f"collab: launches {a['launches']} in {steps} steps and {tests} tests "
+            "(want K1 4 a step and 2 a test, no other kernel)")
+    with open(mf) as f:
+        metrics = [json.loads(line) for line in f]
+    require(len(metrics) == 2 and all(math.isfinite(m["loss"]) for m in metrics),
+            f"collab metrics {metrics}")
+    hits = {k: lg.results[0] for k, lg in loggers.items()}
+    require(all(len(r) == 2 and all(map(math.isfinite, sum(r, ()))) for r in hits.values()),
+            f"collab Hits@K {hits}")
+    profile = [line for line in a["lines"] if line.startswith("[profile]")]
+    require(profile, "collab: the profiled epoch logged no device op (torch.profiler saw no "
+                     "CUDA activity)")
+    # the traced epoch's device time (kernels, copies, memsets; one stream)
+    # against its host-clock seconds, which include the profiler's own cost
+    ops = summarize_trace(pd, top=None)
+    busy_ms = sum(row["total_ms"] for row in ops)
+    kernels_ms = {name: sum(row["total_ms"] for row in ops if pattern in row["name"])
+                  for name, pattern in (("K1", "scatter_"), ("gemm", "gemm"))}
+    log(f"[cli] collab epoch 2 under the profiler: {sum(row['count'] for row in ops)} device "
+        f"events in {len(ops)} names, {busy_ms:.3f} ms busy of {metrics[1]['epoch_seconds'] * 1e3:.1f} "
+        f"ms (host clock): device busy share {busy_ms / (metrics[1]['epoch_seconds'] * 1e3):.3f}; "
+        f"K1 {kernels_ms['K1']:.3f} ms, GEMMs {kernels_ms['gemm']:.3f} ms; card {card}")
+    log(f"[cli] collab (csr, 2 epochs): {steps} steps, {tests} tests, launches {a['launches']}; "
+        f"epoch losses {[m['loss'] for m in metrics]}, epoch seconds "
+        f"{[m['epoch_seconds'] for m in metrics]}; last eval {json.dumps({k: r[-1] for k, r in hits.items()})}; "
+        f"{len(profile)} [profile] lines above (epoch 2's top device ops); {a['seconds']:.1f} s; "
+        f"card {card}")
+    for k, v in a["launches"].items():
+        total[k] += v
+
+    with watch_cli() as r:
+        cli.main(collab + ["--epochs", "3", "--resume", "True"])
+    require("Resumed from run 1, epoch 3" in r["lines"], "collab resume: no 'Resumed from run 1, "
+            "epoch 3' line")
+    require(r["epochs"] == 1 and r["tests"] == 1, f"collab resume: {r['epochs']} epochs")
+    saved, _, _ = CheckpointManager(ck).restore(step=2, device="cpu")
+    start = r["first_params"]
+    require(start is not None and set(start) == set(saved)
+            and all(torch.equal(start[k], saved[k]) for k in saved),
+            "collab resume: the epoch did not start from the checkpoint's parameters")
+    require(r["launches"] == _only(r["launches"], K1=4 * r["steps"] + 2),
+            f"collab resume: launches {r['launches']} in {r['steps']} steps")
+    log(f"[cli] collab --resume: 'Resumed from run 1, epoch 3', 1 epoch of {r['steps']} steps from "
+        f"parameters bitwise equal to checkpoint step 2, launches {r['launches']}; "
+        f"{r['seconds']:.1f} s")
+    for k, v in r["launches"].items():
+        total[k] += v
+
+    pairs = rng.integers(0, N_NODES, (CLI_PAIRS, 2))
+    pp, so = os.path.join(tmp, "collab_pairs.npy"), os.path.join(tmp, "collab_scores.npy")
+    np.save(pp, pairs)
+    serve = collab + ["--epochs", "3", "--score_pairs", pp, "--score_out", so]
+    with watch_cli() as s:
+        cli.main(serve)
+    require(s["launches"] == _only(s["launches"], K1=2), f"collab serving launches {s['launches']}")
+    _, err = check_cli_scores(cli, serve, ck, pairs, np.load(so), "collab")
+    log(f"[cli] collab --score_pairs: {CLI_PAIRS} pairs, launches {s['launches']}; equal to "
+        f"Scorer.from_checkpoint(...).score within 1e-6 (max_abs {err:.3e}); {s['seconds']:.1f} s")
+    for k, v in s["launches"].items():
+        total[k] += v
+    del loggers
+    torch.cuda.empty_cache()
+
+    # 18. the ddi command on the dense backend ------------------------------
+    mf_b = os.path.join(tmp, "ddi.jsonl")
+    ddi = [
+        "--data_name", f"synthetic:hits:num_nodes={DDI_NODES},num_edges={DDI_EDGES}",
+        "--emb_hidden_channels", "512", "--gnn_hidden_channels", "512",
+        "--mlp_hidden_channels", "512", "--num_neg", "3", "--dropout", "0.3",
+        "--epochs", "1", "--eval_steps", "1", "--runs", "1", "--metrics_file", mf_b,
+        "--seed", str(args.seed),
+    ]
+    with watch_cli() as b:
+        loggers = cli.main(ddi)
+    with open(mf_b) as f:
+        (m,) = [json.loads(line) for line in f]
+    require(math.isfinite(m["loss"]), f"ddi loss {m['loss']}")
+    require(b["launches"] == _only(b["launches"]), f"ddi (dense) launched {b['launches']}")
+    require(not any(line.startswith(("auto backend", "hybrid backend")) for line in b["lines"]),
+            "ddi: auto did not take the dense backend")
+    hits = {k: lg.results[0][-1] for k, lg in loggers.items()}
+    require(all(map(math.isfinite, sum(hits.values(), ()))), f"ddi Hits@K {hits}")
+    log(f"[cli] ddi (dense, width 512, 3 negatives, 1 epoch): {b['steps']} steps, loss "
+        f"{m['loss']:.6g}, epoch {m['epoch_seconds']:.3f} s, launches {b['launches']}; "
+        f"{json.dumps(hits)}; {b['seconds']:.1f} s; card {card}")
+    del loggers
+    torch.cuda.empty_cache()
+
+    # 19. TRANSFORMER through auto onto the hybrid operand ------------------
+    ck_c = os.path.join(tmp, "sbm_ck")
+    sbm = [
+        "--data_name", f"synthetic:hits-sbm:num_nodes={SBM_NODES},num_edges={SBM_EDGES},"
+        f"num_communities={SBM_COMMUNITIES}",
+        "--encoder", "TRANSFORMER", "--epochs", "1", "--eval_steps", "1", "--runs", "1",
+        "--checkpoint_dir", ck_c, "--checkpoint_every", "1", "--seed", str(args.seed),
+    ]
+    with watch_cli() as c:
+        cli.main(sbm)
+    decision = [line for line in c["lines"] if line.startswith("auto backend")]
+    require(len(decision) == 1 and decision[0].endswith("-> hybrid"),
+            f"TRANSFORMER: auto did not choose hybrid: {decision}")
+    steps, tests = c["steps"], c["tests"]
+    require(c["launches"] == _only(c["launches"], K3=2 * steps + 2 * tests, K4=2 * steps,
+                                   K5=2 * steps),
+            f"TRANSFORMER: launches {c['launches']} in {steps} steps and {tests} tests")
+    log(f"[cli] TRANSFORMER (auto -> hybrid, 1 epoch): {steps} steps, launches {c['launches']}; "
+        f"{c['seconds']:.1f} s; card {card}")
+    for k, v in c["launches"].items():
+        total[k] += v
+    pairs = rng.integers(0, SBM_NODES, (CLI_PAIRS, 2))
+    pp, so = os.path.join(tmp, "sbm_pairs.npy"), os.path.join(tmp, "sbm_scores.npy")
+    np.save(pp, pairs)
+    serve = sbm + ["--adj_backend", "hybrid", "--score_pairs", pp, "--score_out", so]
+    with watch_cli() as s:
+        cli.main(serve)
+    require(s["launches"] == _only(s["launches"], K3=2), f"TRANSFORMER serving launches "
+            f"{s['launches']}")
+    relabel, err = check_cli_scores(cli, serve, ck_c, pairs, np.load(so), "TRANSFORMER")
+    require(relabel is not None and (relabel != np.arange(SBM_NODES)).any(),
+            "TRANSFORMER serving: no id-space relabel")
+    log(f"[cli] TRANSFORMER --score_pairs over the hybrid operand: {CLI_PAIRS} pairs in original ids, "
+        f"launches {s['launches']}; equal to the restored Scorer on the relabeled ids within "
+        f"1e-6 (max_abs {err:.3e}); {s['seconds']:.1f} s")
+    for k, v in s["launches"].items():
+        total[k] += v
+    log(f"[cli] phases 17-19 in {time.perf_counter() - t_phases:.1f} s; launches {total}")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1057,13 +1334,18 @@ def main() -> int:
 
     del model, model_mlp, scorer, scorer_mlp, x, adj, lib_out
     train_kernels, k1_train_launches = train_path(args, dev, card)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="plnlp_chip_smoke_") as tmp:
+        cli_launches = cli_path(args, dev, card, tmp)
+    for entry, kernel in zip(train_kernels, ("K2", "K3", "K4", "K5")):
+        entry["launches"] += cli_launches[kernel]
 
     kernels = [{
         "name": "scatter_matmul",
         "route": "cuda",
         "source": "plnlp_tpu_torch/csrc/scatter_matmul.cu",
         "replaces": "plnlp_tpu/ops/pallas_spmm.py:51",
-        "launches": launches + k1_train_launches,
+        "launches": launches + k1_train_launches + cli_launches["K1"],
         "max_abs_err": max_abs,
         "ms": ms,
         "plain_ms": plain_ms,

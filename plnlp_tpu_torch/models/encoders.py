@@ -19,9 +19,10 @@ no edges, and their cotangents are zero.
 * TRANSFORMER — TransformerConv (one head): α_ij = softmax_j(⟨W_q x_i,
   W_k x_j⟩/√d), out = W_skip x_i + Σ_j α_ij W_v x_j, adjacency values
   ignored.  Over a ``HybridGraph`` it is the block-sparse flash path
-  (``ops/tile_attention.py``); over a ``Graph`` the per-edge path below.
-  (The JAX package's blocked hand-VJP over ``tconv_map`` and its dense
-  masked path are not ported yet.)
+  (``ops/tile_attention.py``); over a ``DenseAdj`` dense attention masked
+  where the adjacency is zero; over a ``Graph`` the per-edge path below.
+  (The JAX package's blocked hand-VJP over ``tconv_map`` is not ported
+  yet.)
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from plnlp_tpu_torch.dense import DenseAdj
 from plnlp_tpu_torch.graph import Graph, _pad_to
 from plnlp_tpu_torch.nn import dropout as _dropout
 from plnlp_tpu_torch.nn import glorot_init, torch_linear_init
@@ -73,14 +75,25 @@ def _wsage_conv(lp, graph, graph_t, x):
 def _transformer_conv(lp, graph, graph_t, x):
     if isinstance(graph, HybridGraph):
         return hybrid_transformer_conv(lp, graph, x)
-    if not isinstance(graph, Graph):
+    if not isinstance(graph, (Graph, DenseAdj)):
         raise NotImplementedError(
             f"TRANSFORMER over {type(graph).__name__} is not ported yet "
-            "(DenseAdj: ROADMAP queue 1 item 3; GraphParallel: item 8)"
+            "(GraphParallel: ROADMAP queue 1 item 11, multi-device runtime)"
         )
-    # per-edge path; k and v are gathered at the same ids in one wide gather
     d = lp["lin_query"].out_features
     q, k, v = lp["lin_query"](x), lp["lin_key"](x), lp["lin_value"](x)
+    if isinstance(graph, DenseAdj):
+        # The mask is a select, never a product: the row max is taken over
+        # the edges only, exp sees 0 off the edges (no inf, so no NaN in the
+        # gradient), and a row without an in-edge keeps only the skip term.
+        logits = (q @ k.t()) / math.sqrt(d)
+        mask = graph.adj != 0
+        f32 = torch.finfo(torch.float32)
+        m = torch.where(mask, logits, f32.min).amax(1, keepdim=True)
+        ex = torch.where(mask, torch.exp(torch.where(mask, logits - m, 0.0)), 0.0)
+        denom = ex.sum(1, keepdim=True).clamp(min=f32.tiny)
+        return (ex / denom) @ v + lp["lin_skip"](x)
+    # per-edge path; k and v are gathered at the same ids in one wide gather
     kv = torch.cat([k, v], -1)[graph.senders]
     logits = (q[graph.receivers] * kv[:, :d]).sum(-1) / math.sqrt(d)
     alpha = edge_softmax(graph, logits)

@@ -3,6 +3,7 @@ from plnlp_tpu_torch.ops.spmm import (
     blocked_sum_arrays,
     spmm,
     spmm_blocked,
+    spmm_dense,
     spmm_segment,
 )
 
@@ -10,6 +11,7 @@ __all__ = [
     "spmm",
     "spmm_segment",
     "spmm_blocked",
+    "spmm_dense",
     "blocked_sum_arrays",
     "SpmmBlocked",
 ]

@@ -7,6 +7,8 @@
   same kernel over the transposed graph backward (dX = Aᵀ dY).
 * a :class:`~plnlp_tpu_torch.ops.tile_spmm.HybridGraph` goes to
   ``hybrid_spmm`` (dense tiles + blocked residual, ``ops/tile_spmm.py``).
+* a :class:`~plnlp_tpu_torch.dense.DenseAdj` goes to :func:`spmm_dense`,
+  one ``torch.matmul`` (the JAX package's ``jnp.dot``, outside Pallas).
 
 Both support ``reduce ∈ {sum, mean}`` with torch_sparse semantics: mean
 divides by the in-degree, 0 for isolated rows.
@@ -18,14 +20,18 @@ from typing import Optional
 
 import torch
 
+from plnlp_tpu_torch.dense import DenseAdj
 from plnlp_tpu_torch.graph import Graph
 from plnlp_tpu_torch.ops.scatter_matmul import scatter_matmul
 from plnlp_tpu_torch.ops.tile_spmm import HybridGraph, hybrid_spmm
 
-__all__ = ["spmm", "spmm_segment", "spmm_blocked", "blocked_sum_arrays", "SpmmBlocked"]
+__all__ = [
+    "spmm", "spmm_segment", "spmm_blocked", "spmm_dense", "blocked_sum_arrays", "SpmmBlocked",
+]
 
 
-def _mean_scale(graph: Graph, out: torch.Tensor) -> torch.Tensor:
+def _mean_scale(graph, out: torch.Tensor) -> torch.Tensor:
+    """``out`` divided by the in-degree of each row, 0 for isolated rows."""
     deg = graph.in_degrees
     scale = torch.where(deg > 0, 1.0 / deg.clamp(min=1), 0.0).to(out.dtype)
     return out * scale[:, None]
@@ -43,6 +49,13 @@ def spmm_segment(graph: Graph, x: torch.Tensor, reduce: str = "sum") -> torch.Te
     out = x.new_zeros((graph.num_nodes, x.shape[1])).index_add_(
         0, graph.receivers, msgs
     )
+    return _mean_scale(graph, out) if reduce == "mean" else out
+
+
+def spmm_dense(graph: DenseAdj, x: torch.Tensor, reduce: str = "sum") -> torch.Tensor:
+    """``adj @ x`` over the dense adjacency (row = destination)."""
+    _check_reduce(reduce)
+    out = torch.matmul(graph.adj.to(x.dtype), x)
     return _mean_scale(graph, out) if reduce == "mean" else out
 
 
@@ -101,17 +114,18 @@ def spmm_blocked(
 
 
 def spmm(graph, x: torch.Tensor, reduce: str = "sum", graph_t=None) -> torch.Tensor:
-    """Aggregate ``x`` over ``graph``: the hybrid operator for a
-    ``HybridGraph`` (which carries its own transpose), the blocked kernel
-    path when the graph carries blocked metadata, the segment path
-    otherwise."""
+    """Aggregate ``x`` over ``graph``: the dense matmul for a ``DenseAdj``,
+    the hybrid operator for a ``HybridGraph`` (which carries its own
+    transpose), the blocked kernel path when the graph carries blocked
+    metadata, the segment path otherwise."""
+    if isinstance(graph, DenseAdj):
+        return spmm_dense(graph, x, reduce)
     if isinstance(graph, HybridGraph):
         return hybrid_spmm(graph, x, reduce)
     if not isinstance(graph, Graph):
         raise NotImplementedError(
-            f"{type(graph).__name__} operands are not ported yet: DenseAdj "
-            "waits for ROADMAP queue 1 item 3 (dense backend), GraphParallel "
-            "for item 8 (multi-device)"
+            f"{type(graph).__name__} operands are not ported yet: GraphParallel "
+            "waits for ROADMAP queue 1 item 11 (multi-device runtime)"
         )
     if graph.blk_src is not None:
         return spmm_blocked(graph, graph_t, x, reduce)

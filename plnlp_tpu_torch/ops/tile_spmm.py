@@ -277,7 +277,7 @@ def build_hybrid(
     ``perm_in``/``perm_out``; ``order`` is a precomputed reorder
     (order[slot] = old id), e.g. from :func:`estimate_hybrid`.  Tiles are
     stored int8 when that is exact, else float32 (the JAX package's bf16
-    store is ROADMAP queue 1 item 3)."""
+    store is ROADMAP queue 1 item 9)."""
     from plnlp_tpu_torch import default_device
 
     device = default_device(device)

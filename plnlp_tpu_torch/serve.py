@@ -11,6 +11,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from plnlp_tpu_torch.dense import DenseAdj
 from plnlp_tpu_torch.graph import Graph
 from plnlp_tpu_torch.models.predictors import (
     grid_factorizable,
@@ -27,8 +28,9 @@ class Scorer:
 
     ``graph``/``graph_t``/``node_feats`` must match what the model was
     trained with.  ``exclude_edges=True`` filters out the edges of
-    ``exclude_graph``, a CSR :class:`Graph` that defaults to ``graph``;
-    over a ``HybridGraph`` pass its CSR twin (the sampler's graph).
+    ``exclude_graph``, a CSR :class:`Graph` or a ``DenseAdj`` that defaults
+    to ``graph``; over a ``HybridGraph`` pass its CSR twin (the sampler's
+    graph).
     """
 
     # Upper bound on the S×C pair grid scored per pass (sources are chunked
@@ -40,6 +42,25 @@ class Scorer:
         self.model = model
         self.exclude_graph = exclude_graph if exclude_graph is not None else graph
         self.h = model.encode(graph, graph_t, node_feats)
+
+    @classmethod
+    def from_checkpoint(
+        cls,
+        model: Model,
+        checkpoint_dir: str,
+        graph,
+        graph_t=None,
+        node_feats=None,
+        step: Optional[int] = None,
+        exclude_graph=None,
+    ) -> "Scorer":
+        """Load the latest (or ``step``) checkpoint the trainer saved (the
+        CLI's ``--checkpoint_dir``) into ``model`` and build a scorer."""
+        from plnlp_tpu_torch.checkpoint import CheckpointManager
+
+        state, _, _ = CheckpointManager(checkpoint_dir).restore(step, device=model.device)
+        model.load_state_dict(state)
+        return cls(model, graph, graph_t, node_feats, exclude_graph=exclude_graph)
 
     def score(self, pairs) -> np.ndarray:
         """Scores for (M, 2) int node pairs; -1 = unseen-node mean row."""
@@ -65,16 +86,27 @@ class Scorer:
         ``scores`` (S, C) to -inf, from ``exclude_graph``'s CSR: the senders
         of each source's in-edges (its neighbors on a symmetric graph)."""
         g = self.exclude_graph
-        if not isinstance(g, Graph):
-            raise ValueError(
-                f"exclude_edges needs a CSR Graph to read known edges from; got "
-                f"{type(g).__name__}: pass exclude_graph= to Scorer (e.g. the CSR "
-                f"twin of a HybridGraph)"
-            )
         n = self.model.num_nodes
         c = len(candidates)
+        identity = c == n and np.array_equal(candidates, np.arange(n))
+        if isinstance(g, DenseAdj):
+            cand = None if identity else torch.as_tensor(candidates, device=g.device)
+
+            def mask_dense(srcs, scores):
+                rows = g.adj[srcs]
+                if cand is not None:
+                    rows = rows[:, cand]
+                return scores.masked_fill(rows != 0, float("-inf"))
+
+            return mask_dense
+        if not isinstance(g, Graph):
+            raise ValueError(
+                f"exclude_edges needs a CSR Graph or a DenseAdj to read known edges "
+                f"from; got {type(g).__name__}: pass exclude_graph= to Scorer (e.g. "
+                f"the CSR twin of a HybridGraph)"
+            )
         cand_pos = None
-        if not (c == n and np.array_equal(candidates, np.arange(n))):
+        if not identity:
             # node id -> column in the candidate list; c for non-candidates
             pos = np.full(n, c, np.int64)
             pos[candidates] = np.arange(c)

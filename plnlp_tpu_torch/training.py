@@ -88,7 +88,7 @@ class Model(nn.Module):
         if cfg.compute_dtype != "float32":
             raise NotImplementedError(
                 f"compute_dtype {cfg.compute_dtype} is not ported yet (float32 "
-                "only; bf16 is ROADMAP queue 1 item 3)"
+                "only; bf16 is ROADMAP queue 1 item 9)"
             )
         self.cfg = cfg
         self.num_nodes = num_nodes
@@ -244,7 +244,7 @@ class Model(nn.Module):
         if mesh is not None:
             raise NotImplementedError(
                 "data-parallel training over a mesh is not ported yet (ROADMAP "
-                "queue 1 item 8, multi-device runtime)"
+                "queue 1 item 11, multi-device runtime)"
             )
         cfg = self.cfg
         dev = self.device

@@ -19,7 +19,10 @@ def test_port_imports_neither_jax_nor_plnlp_tpu():
         "plnlp_tpu_torch.data, plnlp_tpu_torch._build, plnlp_tpu_torch.losses, "
         "plnlp_tpu_torch.sampling, plnlp_tpu_torch.ops.tile_spmm, "
         "plnlp_tpu_torch.ops.flash_tiles, plnlp_tpu_torch.ops.tile_attention, "
-        "plnlp_tpu_torch.ops.sddmm, sys; "
+        "plnlp_tpu_torch.ops.sddmm, plnlp_tpu_torch.dense, plnlp_tpu_torch.logger, "
+        "plnlp_tpu_torch.data.custom, plnlp_tpu_torch.data.ogb, plnlp_tpu_torch.ops.walk, "
+        "plnlp_tpu_torch.augment, plnlp_tpu_torch.profiling, plnlp_tpu_torch.checkpoint, "
+        "plnlp_tpu_torch.resilience, plnlp_tpu_torch.cli, plnlp_tpu_torch.__main__, sys; "
         "bad = [m for m in sys.modules if m == 'jax' or m == 'plnlp_tpu' "
         "or m.startswith(('jax.', 'plnlp_tpu.'))]; "
         "assert not bad, bad"
@@ -42,4 +45,8 @@ def test_entry_points_raise_without_cuda():
                           mlp_hidden_channels=4), num_nodes=3)
     with pytest.raises(RuntimeError, match="no GPU"):
         default_device("cuda")
+    from plnlp_tpu_torch.dense import prepare_dense
+
+    with pytest.raises(RuntimeError, match="no GPU"):
+        prepare_dense(src, dst, num_nodes=3)
     assert default_device("cpu").type == "cpu"

@@ -280,10 +280,10 @@ def test_params_from_jax_rejects_mismatches():
 
 
 def test_model_rejects_unported_options():
-    with pytest.raises(NotImplementedError, match="bfloat16"):
+    with pytest.raises(NotImplementedError, match="bfloat16.*item 9"):
         Model(ModelConfig(compute_dtype="bfloat16"), num_nodes=4, device="cpu")
-    # TRANSFORMER is ported over a HybridGraph and a CSR Graph; other
-    # operands (DenseAdj, GraphParallel) are not
+    # TRANSFORMER is ported over a HybridGraph, a DenseAdj and a CSR Graph;
+    # other operands (GraphParallel) are not
     tm = Model(ModelConfig(encoder="TRANSFORMER", emb_hidden_channels=4,
                            gnn_hidden_channels=4), num_nodes=4, device="cpu")
     with pytest.raises(NotImplementedError, match="TRANSFORMER over"):

@@ -130,11 +130,11 @@ def test_unported_operands_and_bad_inputs_raise(rng):
     tg, _ = tgraph.prepare_graph(src, dst, num_nodes=30, block=(8, 32), device="cpu")
     x = torch.randn(30, 4)
 
-    class DenseAdj:  # stands in for the unported operand types
+    class GraphParallel:  # stands in for the unported operand type
         pass
 
-    with pytest.raises(NotImplementedError, match="DenseAdj"):
-        spmm(DenseAdj(), x)
+    with pytest.raises(NotImplementedError, match="GraphParallel.*item 11"):
+        spmm(GraphParallel(), x)
     with pytest.raises(ValueError, match="reduce"):
         spmm(tg, x, reduce="max")
     args = (tg.blk_src, tg.blk_local, tg.blk_weight, tg.blk_rowptr, 8, 30)

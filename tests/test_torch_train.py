@@ -158,7 +158,7 @@ def test_train_epoch_batches_count_each_positive_once(monkeypatch):
     assert len(seen) == -(-p_real // 64) == 5
     assert sorted(sum(seen, [])) == list(range(5, p_real))
     assert out == 1.0
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 11"):
         tm.train_epoch(None, tg, None, None, pos, None, gen, 0.01, mesh=object())
 
 
