@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the plnlp_tpu_torch serving and training paths (SAGE and
-TRANSFORMER) on one NVIDIA GPU and check them.
+TRANSFORMER, float32 and bfloat16) and the training CLI on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -62,8 +63,7 @@ Phases (any failure exits non-zero):
 16. time K3, K4, K5, their plain versions, a TRANSFORMER train step and a
    TRANSFORMER encode, and reckon each kernel's bound from the tiles'
    nonzeros and bytes, with the row gather each adds and the dense tile
-   products each skips printed beside it; print one ``{"kernels": [...]}``
-   line listing K1 to K5;
+   products each skips printed beside it;
 17. the training CLI, ``plnlp_tpu_torch.cli.main`` in-process, on the
    reference README's ogbl-collab command over blocked CSR at collab's
    size (235,868 nodes, 1,179,052 drawn edges with weights and years,
@@ -81,7 +81,33 @@ Phases (any failure exits non-zero):
    K4 and K5 launch 2 times a step (K3 2 more per ``Model.test``); then
    ``--score_pairs`` over the hybrid operand with pairs in original ids,
    equal to the restored Scorer's scores on the relabeled ids;
-20. print ``{"ok": true, "device": {...}}`` as the last line.
+20. K1 in bf16 (x and out bfloat16) against its plain version over the
+   collab graph and its transpose (N = 235,868, D = 256) and over the SBM
+   operand's residual, each element within the f32 sums' tolerance plus one
+   bf16 ulp, a second launch bitwise equal; its time, the plain version's,
+   ``torch.sparse.mm`` on a bf16 CSR (or the error PyTorch raises) and its
+   bound;
+21. K2 with bf16 x on the SBM operand's int8 tiles and on bf16 tiles (the
+   SBM with non-integer edge weights, ``build_hybrid(dtype="bfloat16")``
+   through the estimate's cached order, no second label-prop sweep), both
+   directions, with the same checks, times and bound;
+22. SAGE + MLP + AUC in bf16 (width 256, 2 layers, batch 65,536, Adam) for
+   one epoch over the SBM's hybrid operand and one over the collab graph's
+   blocked CSR, then ``Model.test``, ``Scorer.score`` and
+   ``rank_candidates_batch(exclude_edges=True)``: only the bf16 entry
+   points launch (K2 4 and K1 4 a step on hybrid, K1 4 on CSR, 2 each an
+   encode), the parameters and Adam's state stay float32, the scores are
+   float32; step, epoch and encode times;
+23. the card-against-CPU step of phase 10 in bf16, at bf16 tolerances;
+24. the CLI's collab command with ``--compute_dtype bfloat16 --block_rows
+   0``: the autotune's candidates (their forward+backward times) and its
+   choice, 2 epochs with only K1 bf16 launching, and a profiler trace of
+   epoch 2 whose GEMM kernels and their time a step it logs;
+25. the CLI's ddi command with ``--compute_dtype bfloat16`` on the dense
+   backend (no kernel launch);
+26. print the card's name and power limit, the ``{"kernels": [...]}`` line
+   (K1 to K5 and the bf16 K1 and K2), and ``{"ok": true, "device":
+   {...}}`` as the last line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -133,9 +159,15 @@ TOL = 1e-4  # rtol = atol for values that are not long sums (h, scores)
 # moves a row by |w * x| ~ 1, far outside it.
 SUM_ATOL = 1e-5
 SUM_RTOL = 1e-6
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor) FLOP/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor) and
+# dense bf16 (tensor core) FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+# A bf16 kernel output and its plain version each round an f32 sum once:
+# beyond the f32 sums' tolerance they may differ by one bf16 ulp, at most
+# 2**-7 of the value.
+BF16_RTOL = 2.0 ** -7
 
 
 def log(msg: str) -> None:
@@ -176,12 +208,15 @@ def errors(got, want):
     return float(diff.max()), float(rel.max()), ok
 
 
-def sum_errors(got, want, abs_sum):
+def sum_errors(got, want, abs_sum, ulp_rtol=0.0):
     """(max abs error, max of error / tolerance, within tolerance) for a
     kernel output against its plain version; ``abs_sum`` is the same sum
-    over the terms' magnitudes."""
-    diff = (got - want).abs()
-    ratio = float((diff / (SUM_ATOL + SUM_RTOL * abs_sum)).max())
+    over the terms' magnitudes.  A bf16 output passes ``ulp_rtol`` =
+    BF16_RTOL: kernel and plain version each round an f32 sum once to
+    bf16, so they may differ by one bf16 ulp beyond the sums' tolerance."""
+    diff = (got.float() - want.float()).abs()
+    tol = SUM_ATOL + SUM_RTOL * abs_sum + ulp_rtol * want.float().abs()
+    ratio = float((diff / tol).max())
     return float(diff.max()), ratio, ratio <= 1.0
 
 
@@ -214,6 +249,7 @@ def hybrid_data(num_nodes: int, num_edges: int, num_communities: int, seed: int,
     t_est = time.perf_counter() - t0
     relabel = np.empty(num_nodes, np.int64)
     relabel[est["order"]] = np.arange(num_nodes)
+    edges = (src, dst)  # original ids: with est["order"] the bf16 build needs no sweep
     src, dst = relabel[src], relabel[dst]
     t0 = time.perf_counter()
     hg = build_hybrid(
@@ -229,7 +265,7 @@ def hybrid_data(num_nodes: int, num_edges: int, num_communities: int, seed: int,
     return {
         "hg": hg, "sample_graph": sample_graph, "split": split, "est": est,
         "pos": relabel[ds["split_edge"]["train"]["edge"]],
-        "seconds": (t_gen, t_est, t_build),
+        "seconds": (t_gen, t_est, t_build), "edges": edges,
     }
 
 
@@ -267,7 +303,7 @@ def abs_operand(hg):
     return dataclasses.replace(hg, tile_vals=hg.tile_vals.abs(), res_graph=res)
 
 
-def card_vs_cpu_step(cfg, small, args, dev) -> None:
+def card_vs_cpu_step(cfg, small, args, dev, loss_tol=1e-5, grad_tol=1e-4, param_atol=1e-5):
     """One train step on the card and the same step on the CPU (the plain
     path), on the training recipe at 1/SMALL of the size (``small``), with
     the CE loss and SGD in place of the epoch's AUC and Adam.
@@ -282,10 +318,11 @@ def card_vs_cpu_step(cfg, small, args, dev) -> None:
     devices; SGD's step is linear in the gradient, so the parameters after
     it can be held to a plain tolerance.
 
-    Tolerances.  The loss within 1e-5 relative; the gradient of each
-    clipping group (embedding, encoder, predictor) within 1e-4 in relative
+    Tolerances (float32; the bf16 phase passes its own).  The loss within
+    ``loss_tol`` = 1e-5 relative; the gradient of each clipping group
+    (embedding, encoder, predictor) within ``grad_tol`` = 1e-4 in relative
     L2 norm (f32 sums in another order); every parameter after the step
-    within 1e-5 + 1e-5 * |p|."""
+    within ``param_atol`` = 1e-5, + 1e-5 * |p|."""
     import torch
 
     from plnlp_tpu_torch.training import Model
@@ -304,7 +341,7 @@ def card_vs_cpu_step(cfg, small, args, dev) -> None:
     loss_c = float(m_cpu.train_step(m_cpu.make_optimizer(), hg.to("cpu"), None, None,
                                     pos.cpu(), neg.cpu(), None, mask.cpu(), cfg.lr))
     cpu_s = time.perf_counter() - t0
-    require(abs(loss_g - loss_c) <= 1e-5 * abs(loss_c), f"loss card {loss_g} vs CPU {loss_c}")
+    require(abs(loss_g - loss_c) <= loss_tol * abs(loss_c), f"loss card {loss_g} vs CPU {loss_c}")
     pairs = [(k, a, b) for (k, a), (_, b) in zip(m_gpu.named_parameters(), m_cpu.named_parameters())]
     group_err = {}
     for group in ("emb", "encoder", "predictor"):
@@ -313,24 +350,26 @@ def card_vs_cpu_step(cfg, small, args, dev) -> None:
         diff = sum(float((a.grad.cpu() - b.grad).square().sum()) for a, b in members)
         ref = sum(float(b.grad.square().sum()) for _, b in members)
         group_err[group] = (diff / max(ref, 1e-60)) ** 0.5
-        require(group_err[group] <= 1e-4,
+        require(group_err[group] <= grad_tol,
                 f"{group} gradient relative L2 error {group_err[group]:.3e}")
     worst_param, worst_ratio = 0.0, 0.0
     for k, a, b in pairs:
         d = (a.detach().cpu() - b.detach()).abs()
-        ratio = float((d / (1e-5 + 1e-5 * b.detach().abs())).max())
+        ratio = float((d / (param_atol + 1e-5 * b.detach().abs())).max())
         worst_param, worst_ratio = max(worst_param, float(d.max())), max(worst_ratio, ratio)
         require(ratio <= 1.0, f"{k} after the step: max |diff|/tol {ratio:.3f}")
-    log(f"[train] card vs CPU, {cfg.encoder}: one SGD step with CE at N={n} (nt={hg.num_tiles}, batch "
-        f"{pos.shape[0]}): loss {loss_g:.9g} vs {loss_c:.9g}; gradient relative L2 error "
+    log(f"[train] card vs CPU, {cfg.encoder} in {cfg.compute_dtype}: one SGD step with CE at N={n} "
+        f"(nt={hg.num_tiles}, batch {pos.shape[0]}): loss {loss_g:.9g} vs {loss_c:.9g} (tol "
+        f"{loss_tol} relative); gradient relative L2 error "
         + ", ".join(f"{g} {e:.3e}" for g, e in group_err.items())
-        + f" (tol 1e-4); parameters after the step max |diff| {worst_param:.3e}, max "
-        f"|diff|/tol {worst_ratio:.3f} (tol 1e-5 + 1e-5 |p|); CPU step {cpu_s:.1f} s")
+        + f" (tol {grad_tol}); parameters after the step max |diff| {worst_param:.3e}, max "
+        f"|diff|/tol {worst_ratio:.3f} (tol {param_atol} + 1e-5 |p|); CPU step {cpu_s:.1f} s")
 
 
 def train_path(args, dev, card):
-    """Phases 7-16; returns the entries of K2-K5 in the kernels line and
-    K1's launches on the training path (epoch and test)."""
+    """Phases 7-16; returns the entries of K2-K5 in the kernels line, K1's
+    launches on the training path (epoch and test), and the SBM data and its
+    small twin for the bf16 phases."""
     import torch
 
     from plnlp_tpu_torch.ops import scatter_matmul as sm
@@ -418,7 +457,7 @@ def train_path(args, dev, card):
     opt = model.make_optimizer()
     steps = math.ceil(len(data["pos"]) / BATCH)
     torch.cuda.synchronize()
-    tm.LAUNCHES = sm.LAUNCHES = 0
+    zero_counts()
     t0 = time.perf_counter()
     loss = model.train_epoch(
         opt, hg, None, None, data["pos"], None, gen, cfg.lr, sample_graph=data["sample_graph"]
@@ -426,6 +465,7 @@ def train_path(args, dev, card):
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t0
     k2_epoch, k1_epoch = tm.LAUNCHES, sm.LAUNCHES
+    require(tm.LAUNCHES_BF16 == 0 and sm.LAUNCHES_BF16 == 0, "a bf16 kernel ran in float32")
     log(f"[train] one epoch: {steps} steps, mean loss {loss:.6g}, {k2_epoch} tile_matmul "
         f"and {k1_epoch} scatter_matmul launches; {epoch_s:.3f} s; card {card}")
     # the epoch's loss is the count-weighted mean of every step's loss, so
@@ -433,7 +473,7 @@ def train_path(args, dev, card):
     require(math.isfinite(loss), f"epoch loss {loss}")
     require(k2_epoch == 4 * steps and k1_epoch == 4 * steps,
             f"{k2_epoch}/{k1_epoch} launches in {steps} steps (want 4 each a step)")
-    tm.LAUNCHES = sm.LAUNCHES = 0
+    zero_counts()
     hits = model.test(hg, None, None, data["split"], "hits")
     torch.cuda.synchronize()
     k2_test, k1_test = tm.LAUNCHES, sm.LAUNCHES
@@ -518,7 +558,7 @@ def train_path(args, dev, card):
     }
     del model, opt, adj, x_pad, pos_b, neg_b
     flash = transformer_path(args, dev, card, cfg, data, small, gen)
-    return [k2, *flash], k1_epoch + k1_test
+    return [k2, *flash], k1_epoch + k1_test, data, small
 
 
 # ---------------------------------------------------------------------------
@@ -726,8 +766,7 @@ def transformer_path(args, dev, card, cfg, data, small, gen):
     opt = model.make_optimizer()
     steps = math.ceil(len(data["pos"]) / BATCH)
     torch.cuda.synchronize()
-    ft.LAUNCHES.update(fwd=0, dq=0, dkv=0)
-    tm.LAUNCHES = sm.LAUNCHES = 0
+    zero_counts()
     t0 = time.perf_counter()
     loss = model.train_epoch(
         opt, hg, None, None, data["pos"], None, gen, cfg.lr, sample_graph=data["sample_graph"]
@@ -863,6 +902,416 @@ def transformer_path(args, dev, card, cfg, data, small, gen):
 
 
 # ---------------------------------------------------------------------------
+# bfloat16 compute: K1 and K2 in bf16, SAGE in bf16, the CLI in bf16
+# ---------------------------------------------------------------------------
+
+
+def launch_counts():
+    """Every kernel's launch count, by kernel and, for K1 and K2, dtype."""
+    from plnlp_tpu_torch.ops import flash_tiles as ft
+    from plnlp_tpu_torch.ops import scatter_matmul as sm
+    from plnlp_tpu_torch.ops import tile_matmul as tm
+
+    return {"K1": sm.LAUNCHES, "K1bf16": sm.LAUNCHES_BF16, "K2": tm.LAUNCHES,
+            "K2bf16": tm.LAUNCHES_BF16, "K3": ft.LAUNCHES["fwd"], "K4": ft.LAUNCHES["dq"],
+            "K5": ft.LAUNCHES["dkv"]}
+
+
+def zero_counts() -> None:
+    from plnlp_tpu_torch.ops import flash_tiles as ft
+    from plnlp_tpu_torch.ops import scatter_matmul as sm
+    from plnlp_tpu_torch.ops import tile_matmul as tm
+
+    sm.LAUNCHES = sm.LAUNCHES_BF16 = tm.LAUNCHES = tm.LAUNCHES_BF16 = 0
+    ft.LAUNCHES.update(fwd=0, dq=0, dkv=0)
+
+
+def library_call_ms(fn):
+    """(ms, None) for one PyTorch library call, or (None, the error it
+    raised) where PyTorch does not run it on these inputs (a sparse product
+    in bf16, say); the port never calls it."""
+    import torch
+
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as exc:
+        return None, f"{type(exc).__name__}: {str(exc).splitlines()[0][:160]}"
+    return cuda_ms(fn, reps=20, runs=5), None
+
+
+def k1_bf16_phase(graph, graph_t, data, gen, card):
+    """Phase 20: K1 in bf16 against its plain version over the collab graph
+    and its transpose (x (N, 256)) and the SBM operand's residual (x at the
+    padded-carry n_pad rows), a second launch bitwise equal; then its time,
+    the plain version's, ``torch.sparse.mm`` on a bf16 CSR, and its bound."""
+    import torch
+
+    from plnlp_tpu_torch.ops import scatter_matmul as sm
+
+    n = graph.num_nodes
+    hg = data["hg"]
+    res = hg.res_graph
+    n_pad = (hg.tile_rowptr.shape[0] - 1) * TILE
+    x = torch.randn(n, WIDTH, device=graph.blk_src.device, generator=gen).to(torch.bfloat16)
+    x_res = torch.randn(n_pad, WIDTH, device=x.device, generator=gen).to(torch.bfloat16)
+    max_abs = 0.0
+    for label, g, xx, rows in (("graph", graph, x, n), ("graph_t", graph_t, x, n),
+                               ("the SBM residual", res, x_res, hg.num_nodes)):
+        kargs = (g.blk_src, g.blk_local, g.blk_weight, g.blk_rowptr, g.block_rows, rows)
+        got = sm.scatter_matmul(xx, *kargs)
+        require(got.dtype == torch.bfloat16 and torch.equal(got, sm.scatter_matmul(xx, *kargs)),
+                f"scatter_matmul bf16 on {label}: a second launch differs")
+        want = sm.scatter_matmul_reference(xx, *kargs)
+        abs_sum = sm.scatter_matmul_reference(xx.float().abs(), g.blk_src, g.blk_local,
+                                              g.blk_weight.abs(), *kargs[3:])
+        torch.cuda.synchronize()
+        ea, ratio, ok = sum_errors(got, want, abs_sum, BF16_RTOL)
+        max_abs = max(max_abs, ea)
+        log(f"[bf16] scatter_matmul bf16 on {label} ({rows} rows): max_abs={ea:.3e} max err/tol="
+            f"{ratio:.3f} (tol {SUM_ATOL} + {SUM_RTOL}*sum|w x| + {BF16_RTOL}*|plain|); a second "
+            f"launch gives the same bits")
+        require(ok, f"scatter_matmul bf16 on {label} disagrees with its plain version")
+        require(not got[(g.in_degrees == 0).nonzero()[:, 0]].any(),
+                f"scatter_matmul bf16 on {label}: a row no edge reaches is not zero")
+    del got, want, abs_sum
+    kargs = (graph.blk_src, graph.blk_local, graph.blk_weight, graph.blk_rowptr, BLOCK[0], n)
+    ms = cuda_ms(lambda: sm.scatter_matmul(x, *kargs), reps=20, runs=5)
+    plain_ms = cuda_ms(lambda: sm.scatter_matmul_reference(x, *kargs), reps=3, runs=3)
+    adj = torch.sparse_csr_tensor(graph.indptr.long(), graph.senders.long(),
+                                  graph.edge_weight.to(torch.bfloat16), size=(n, n))
+    library_ms, lib_err = library_call_ms(lambda: torch.sparse.mm(adj, x))
+    res_ms = cuda_ms(lambda: sm.scatter_matmul(
+        x_res, res.blk_src, res.blk_local, res.blk_weight, res.blk_rowptr, res.block_rows,
+        hg.num_nodes), reps=10, runs=5)
+    # Least time for the same work: x (bf16) read once, out (bf16) written
+    # once, the blocked metadata (12 bytes a slot) and the row pointer; the
+    # multiply-adds of the real edges at the bf16 peak.
+    e, nblk = graph.num_edges, graph.blk_src.shape[0]
+    nbytes = 2 * n * WIDTH * 2 + nblk * BLOCK[1] * 12 + graph.blk_rowptr.numel() * 4
+    flops = 2 * e * WIDTH
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    gather = e * WIDTH * 2
+    log(f"[time] scatter_matmul bf16 graph {ms:.4f} ms (N={n}, D={WIDTH}, E={e}); plain "
+        f"{plain_ms:.4f} ms; torch.sparse.mm (bf16 CSR) "
+        + (f"{library_ms:.4f} ms" if library_ms is not None else f"not run: {lib_err}")
+        + f"; bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e9:.3f} GB take {t_bytes:.4f} ms, "
+        f"{flops / 1e9:.3f} GFLOP take {t_ops:.4f} ms at the bf16 peak); its row gather, "
+        f"{gather / 1e9:.3f} GB, takes {gather / HBM_BYTES_PER_S * 1e3:.4f} ms from HBM; on the "
+        f"SBM residual ({hg.res_edges} edges, x at {n_pad} rows) {res_ms:.4f} ms; card {card}")
+    return {
+        "name": "scatter_matmul_bf16",
+        "route": "cuda",
+        "source": "plnlp_tpu_torch/csrc/scatter_matmul.cu",
+        "replaces": "plnlp_tpu/ops/pallas_spmm.py:51",
+        "launches": 0,
+        "max_abs_err": max_abs,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+    }
+
+
+def k2_bf16_phase(args, data, gen, card):
+    """Phase 21: K2 with bf16 x (the padded-carry n_pad rows) against its
+    plain version on the SBM operand's int8 tiles and on bf16 tiles (the
+    same SBM with non-integer edge weights, built with dtype="bfloat16"
+    through the estimate's cached order: no second label-prop sweep), both
+    directions, a second launch bitwise equal; then its time, the plain
+    version's, ``torch.sparse.mm`` on a bf16 CSR of the tile edges, and its
+    bound."""
+    import torch
+
+    from plnlp_tpu_torch.ops import tile_matmul as tm
+    from plnlp_tpu_torch.ops.tile_spmm import build_hybrid
+
+    hg = data["hg"]
+    n = hg.num_nodes
+    n_r = hg.tile_rowptr.shape[0] - 1
+    n_pad = n_r * TILE
+    src, dst = data["edges"]
+    w = np.random.default_rng(args.seed).random(len(src)).astype(np.float32) + 0.5
+    t0 = time.perf_counter()
+    hg_bf = build_hybrid(src, dst, w, num_nodes=n, tile=TILE, min_fill=MIN_FILL, block=BLOCK,
+                         dtype="bfloat16", reorder="labelprop", order=data["est"]["order"],
+                         device=hg.tile_vals.device)
+    t_build = time.perf_counter() - t0
+    require(hg_bf.tile_vals.dtype == torch.bfloat16 and hg_bf.num_tiles == hg.num_tiles,
+            f"bf16 build: store {hg_bf.tile_vals.dtype}, {hg_bf.num_tiles} tiles")
+    x = torch.randn(n_pad, WIDTH, device=hg.tile_vals.device, generator=gen).to(torch.bfloat16)
+    sets = {
+        "int8 tile_vals": (hg.tile_vals, hg.tile_row, hg.tile_col, hg.tile_rowptr),
+        "int8 tile_vals_t": (hg.tile_vals_t, hg.tile_row_t, hg.tile_col_t, hg.tile_rowptr_t),
+        "bf16 tile_vals": (hg_bf.tile_vals, hg_bf.tile_row, hg_bf.tile_col, hg_bf.tile_rowptr),
+        "bf16 tile_vals_t": (hg_bf.tile_vals_t, hg_bf.tile_row_t, hg_bf.tile_col_t,
+                             hg_bf.tile_rowptr_t),
+    }
+    max_abs = 0.0
+    for label, (v, r, c, p) in sets.items():
+        got = tm.tile_matmul(v, r, c, p, x, n_pad)
+        require(got.dtype == torch.bfloat16 and torch.equal(got, tm.tile_matmul(v, r, c, p, x, n_pad)),
+                f"tile_matmul bf16 on {label}: a second launch differs")
+        want = tm.tile_matmul_reference(v, r, c, x, n_r, n_pad)
+        abs_sum = tm.tile_matmul_reference(v.to(torch.bfloat16).float().abs(), r, c,
+                                           x.float().abs(), n_r, n_pad)
+        torch.cuda.synchronize()
+        ea, ratio, ok = sum_errors(got, want, abs_sum, BF16_RTOL)
+        max_abs = max(max_abs, ea)
+        log(f"[bf16] tile_matmul bf16 on {label}, x at {n_pad} rows: max_abs={ea:.3e} max err/tol="
+            f"{ratio:.3f} (tol {SUM_ATOL} + {SUM_RTOL}*sum|v x| + {BF16_RTOL}*|plain|); a second "
+            f"launch gives the same bits")
+        require(ok, f"tile_matmul bf16 on {label} disagrees with its plain version")
+        require(not got[n:].any(), f"tile_matmul bf16 on {label}: rows past num_nodes not zero")
+        del got, want, abs_sum
+    v, r, c, p = sets["int8 tile_vals"]
+    ms = cuda_ms(lambda: tm.tile_matmul(v, r, c, p, x, n_pad), reps=10, runs=5)
+    ms_t = cuda_ms(lambda: tm.tile_matmul(*sets["int8 tile_vals_t"], x, n_pad), reps=10, runs=5)
+    ms_bf = cuda_ms(lambda: tm.tile_matmul(*sets["bf16 tile_vals"], x, n_pad), reps=10, runs=5)
+    plain_ms = cuda_ms(lambda: tm.tile_matmul_reference(v, r, c, x, n_r, n_pad), reps=2, runs=3)
+    nz = v.nonzero()
+    nnz = int(nz.shape[0])
+    adj = torch.sparse_coo_tensor(
+        torch.stack([r[nz[:, 0]].long() * TILE + nz[:, 1], c[nz[:, 0]].long() * TILE + nz[:, 2]]),
+        v[nz[:, 0], nz[:, 1], nz[:, 2]].to(torch.bfloat16), (n_pad, n_pad),
+    ).coalesce().to_sparse_csr()
+    library_ms, lib_err = library_call_ms(lambda: torch.sparse.mm(adj, x))
+    # Least time for the same function on these inputs: the int8 tiles, x
+    # and out (bf16) once each, the indices; one multiply-add per nonzero
+    # and column at the bf16 peak.
+    nbytes = v.numel() * v.element_size() + 2 * n_pad * WIDTH * 2 + (2 * hg.num_tiles + n_r + 1) * 4
+    flops = 2 * nnz * WIDTH
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    gather = nnz * WIDTH * 2
+    log(f"[time] tile_matmul bf16 (int8 tiles) tile_vals {ms:.4f} ms, tile_vals_t {ms_t:.4f} ms; "
+        f"bf16 tiles tile_vals {ms_bf:.4f} ms (x at {n_pad} rows); plain {plain_ms:.4f} ms; "
+        f"torch.sparse.mm (bf16 CSR of the {nnz} dense-tile edges) "
+        + (f"{library_ms:.4f} ms" if library_ms is not None else f"not run: {lib_err}")
+        + f"; bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e9:.3f} GB take {t_bytes:.4f} ms, "
+        f"{flops / 1e9:.3f} GFLOP take {t_ops:.4f} ms at the bf16 peak); its row gather, "
+        f"{gather / 1e9:.3f} GB, takes {gather / HBM_BYTES_PER_S * 1e3:.4f} ms from HBM; the bf16 "
+        f"build (weighted SBM, cached order) {t_build:.1f} s; card {card}")
+    return {
+        "name": "tile_matmul_bf16",
+        "route": "cuda",
+        "source": "plnlp_tpu_torch/csrc/tile_matmul.cu",
+        "replaces": "plnlp_tpu/ops/pallas_tiles.py:62",
+        "launches": 0,
+        "max_abs_err": max_abs,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+    }
+
+
+def sage_bf16_phase(args, dev, card, graph, graph_t, ds, split, data):
+    """Phase 22: SAGE + MLP + AUC in bf16 (width 256, 2 layers, batch
+    65,536, Adam) for one epoch over the SBM's hybrid operand and one over
+    the collab graph's blocked CSR, then ``Model.test``, ``Scorer.score`` and
+    ``rank_candidates_batch(exclude_edges=True)``; only the bf16 entry points
+    launch (K2 4 and K1 4 a step on hybrid, K1 4 on CSR; 2 each an encode)
+    and the parameters and Adam's state are still f32.  Returns the launches
+    of the phase."""
+    import torch
+
+    from plnlp_tpu_torch.serve import Scorer
+    from plnlp_tpu_torch.training import Model, ModelConfig
+
+    cfg = ModelConfig(
+        encoder="SAGE", predictor="MLP", loss_func="AUC", neg_sampler="global",
+        gnn_num_layers=2, emb_hidden_channels=WIDTH, gnn_hidden_channels=WIDTH,
+        mlp_hidden_channels=WIDTH, batch_size=BATCH, num_neg=1, compute_dtype="bfloat16",
+    )
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    rng = np.random.default_rng(args.seed + 2)
+    total = dict.fromkeys(launch_counts(), 0)
+    runs = (
+        ("hybrid", data["hg"], None, data["sample_graph"], data["pos"], data["split"],
+         ("K1bf16", "K2bf16")),
+        ("csr", graph, graph_t, graph, ds["split_edge"]["train"]["edge"], split, ("K1bf16",)),
+    )
+    for label, g, gt, sample, pos, spl, kernels in runs:
+        n = g.num_nodes
+        model = Model(cfg, n, seed=args.seed, device=dev)
+        opt = model.make_optimizer()
+        steps = math.ceil(len(pos) / BATCH)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        loss = model.train_epoch(opt, g, gt, None, pos, None, gen, cfg.lr, sample_graph=sample)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        epoch = launch_counts()
+        require(math.isfinite(loss), f"bf16 {label} epoch loss {loss}")
+        require(epoch == _only(epoch, **{k: 4 * steps for k in kernels}),
+                f"bf16 {label}: launches {epoch} in {steps} steps (want {kernels} 4 a step, "
+                "no float32 launch)")
+        require(all(p.dtype == torch.float32 for p in model.parameters())
+                and all(v.dtype == torch.float32 for st in opt.state.values() for v in st.values()
+                        if torch.is_tensor(v) and v.is_floating_point()),
+                "bf16: a parameter or an optimizer state is not float32")
+        zero_counts()
+        t0 = time.perf_counter()
+        hits = model.test(g, gt, None, spl, "hits")
+        torch.cuda.synchronize()
+        test_ms = (time.perf_counter() - t0) * 1e3
+        test = launch_counts()
+        require(test == _only(test, **{k: 2 for k in kernels}), f"bf16 {label}: {test} in a test")
+        require(all(0.0 <= v <= 1.0 for pair in hits.values() for v in pair), f"hits {hits}")
+        zero_counts()
+        pairs = rng.integers(0, n, (65_536, 2))
+        srcs = rng.integers(0, n, 256)
+        scorer = Scorer(model, g, gt, exclude_graph=sample)
+        scores = scorer.score(pairs)
+        ids, top = scorer.rank_candidates_batch(srcs, k=50, exclude_edges=True)
+        torch.cuda.synchronize()
+        serve = launch_counts()
+        require(serve == _only(serve, **{k: 2 for k in kernels}), f"bf16 {label}: {serve} serving")
+        require(scorer.h.dtype == torch.float32 and scores.dtype == np.float32
+                and np.isfinite(scores).all() and np.isfinite(top).all(), "bf16 scores")
+        indptr, senders = sample.indptr.cpu().numpy(), sample.senders.cpu().numpy()
+        for row, s in zip(ids, srcs):
+            require(not set(row.tolist()) & set(senders[indptr[s]:indptr[s + 1]].tolist()),
+                    f"bf16 {label}: a known neighbor of {s} ranked")
+        for counts in (epoch, test, serve):
+            for k, v in counts.items():
+                total[k] += v
+        pos_b = torch.as_tensor(pos[:BATCH], device=dev)
+        neg_b = model.sample_negatives(gen, sample, pos_b)
+        ones = torch.ones(pos_b.shape[0], device=dev)
+        step_ms = cuda_ms(
+            lambda: model.train_step(opt, g, gt, None, pos_b, neg_b, None, ones, cfg.lr),
+            reps=3, runs=3)
+        encode_ms = cuda_ms(lambda: model.encode(g, gt), reps=3, runs=3)
+        score_ms = cuda_ms(lambda: scorer.score(pairs), reps=5, runs=3)
+        log(f"[bf16] SAGE in bf16 over {label} (N={n}): one epoch of {steps} steps, mean loss "
+            f"{loss:.6g}, {epoch_s:.3f} s (sampling included), launches {epoch}; train step "
+            f"{step_ms:.3f} ms; encode {encode_ms:.3f} ms; Model.test {test_ms:.1f} ms (host "
+            f"clock), launches {test}, {json.dumps(hits)}; Scorer.score 65536 pairs {score_ms:.3f} "
+            f"ms and rank 256 sources k=50 exclude_edges, launches {serve}, scores f32 and "
+            f"finite; parameters and Adam state f32; card {card}")
+        del model, opt, scorer, pos_b, neg_b
+        torch.cuda.empty_cache()
+    return total
+
+
+# The bf16 card-vs-CPU step.  Both devices round each bf16 product's sum
+# once, but in other orders (cuBLAS against the CPU's matmul, the kernels
+# against their plain versions), so an activation may land one bf16 ulp
+# (2**-8 relative) apart; through two layers, the predictor and the
+# backward that reaches a gradient's norm at about a percent.  SGD's step
+# is 1.9 lr g (momentum 0.9, nesterov), so parameters move apart by
+# 1.9e-3 times the gradient's difference.
+BF16_STEP_TOLS = dict(loss_tol=1e-2, grad_tol=3e-2, param_atol=1e-4)
+
+
+def cli_bf16_path(args, dev, card, tmp):
+    """Phases 24-25; returns the launches in them."""
+    from plnlp_tpu_torch import cli
+    from plnlp_tpu_torch.profiling import summarize_trace
+
+    total = dict.fromkeys(launch_counts(), 0)
+    # 24. the collab command in bf16 with --block_rows 0 ----------------------
+    mf, pd = os.path.join(tmp, "collab_bf16.jsonl"), os.path.join(tmp, "trace_bf16")
+    argv = collab_flags(args.seed) + [
+        "--compute_dtype", "bfloat16", "--block_rows", "0", "--epochs", "2",
+        "--metrics_file", mf, "--profile_dir", pd,
+    ]
+    with watch_cli() as a:
+        loggers = cli.main(argv)
+    tuned = [line for line in a["lines"] if line.startswith("autotune: (R=")]
+    chosen = [line for line in a["lines"] if line.startswith("autotuned block")]
+    steps, tests = a["steps"], a["tests"]
+    require(tuned and len(chosen) == 1, f"collab bf16: autotune lines {tuned}, {chosen}")
+    # each measured candidate: a warm-up and 3 timed forward+backward runs,
+    # 2 launches each
+    want = 4 * steps + 2 * tests + 8 * len(tuned)
+    require(a["launches"] == _only(a["launches"], K1bf16=want),
+            f"collab bf16: launches {a['launches']} in {steps} steps, {tests} tests and "
+            f"{len(tuned)} autotune candidates (want K1bf16 {want}, nothing else)")
+    with open(mf) as f:
+        metrics = [json.loads(line) for line in f]
+    require(len(metrics) == 2 and all(math.isfinite(m["loss"]) for m in metrics),
+            f"collab bf16 metrics {metrics}")
+    hits = {k: lg.results[0][-1] for k, lg in loggers.items()}
+    require(all(map(math.isfinite, sum(hits.values(), ()))), f"collab bf16 Hits@K {hits}")
+    ops = summarize_trace(pd, top=None)
+    require(ops, "collab bf16: the profiled epoch has no device op")
+    busy_ms = sum(row["total_ms"] for row in ops)
+    epoch_ms = metrics[1]["epoch_seconds"] * 1e3
+    gemms = [row for row in ops
+             if any(k in row["name"].lower() for k in ("gemm", "nvjet", "xmma", "cutlass"))]
+    gemm_ms = sum(row["total_ms"] for row in gemms)
+    k1_ms = sum(row["total_ms"] for row in ops if "scatter_" in row["name"])
+    per_epoch = steps // 2
+    for line in tuned + chosen:
+        log(f"[cli-bf16] {line}")
+    for row in gemms:
+        log(f"[cli-bf16] GEMM in the profiled epoch: {row['name'][:150]}: {row['count']} launches, "
+            f"{row['total_ms']:.3f} ms")
+    log(f"[cli-bf16] collab (csr, bf16, --block_rows 0, 2 epochs): {steps} steps, {tests} tests, "
+        f"launches {a['launches']}; epoch losses {[m['loss'] for m in metrics]}, epoch seconds "
+        f"{[m['epoch_seconds'] for m in metrics]}; last eval {json.dumps(hits)}; profiled epoch 2: "
+        f"{busy_ms:.3f} ms busy of {epoch_ms:.1f} ms (device busy share {busy_ms / epoch_ms:.3f}); "
+        f"GEMMs {gemm_ms:.3f} ms ({gemm_ms / max(per_epoch, 1):.3f} ms a step over {per_epoch} "
+        f"steps), K1 bf16 {k1_ms:.3f} ms; {a['seconds']:.1f} s; card {card}")
+    for k, v in a["launches"].items():
+        total[k] += v
+    del loggers
+
+    # 25. the ddi command in bf16 on the dense backend -----------------------
+    mf_b = os.path.join(tmp, "ddi_bf16.jsonl")
+    with watch_cli() as b:
+        loggers = cli.main(ddi_flags(args.seed) + ["--compute_dtype", "bfloat16",
+                                                   "--metrics_file", mf_b])
+    with open(mf_b) as f:
+        (m,) = [json.loads(line) for line in f]
+    require(math.isfinite(m["loss"]), f"ddi bf16 loss {m['loss']}")
+    require(b["launches"] == _only(b["launches"]), f"ddi bf16 (dense) launched {b['launches']}")
+    require(not any(line.startswith(("auto backend", "hybrid backend")) for line in b["lines"]),
+            "ddi bf16: auto did not take the dense backend")
+    hits = {k: lg.results[0][-1] for k, lg in loggers.items()}
+    require(all(map(math.isfinite, sum(hits.values(), ()))), f"ddi bf16 Hits@K {hits}")
+    log(f"[cli-bf16] ddi (dense, bf16, width 512, 3 negatives, 1 epoch): {b['steps']} steps, loss "
+        f"{m['loss']:.6g}, epoch {m['epoch_seconds']:.3f} s, launches {b['launches']}; "
+        f"{json.dumps(hits)}; {b['seconds']:.1f} s; card {card}")
+    return total
+
+
+def bf16_path(args, dev, card, graph, graph_t, ds, split, data, small, tmp):
+    """Phases 20-25; returns the bf16 entries of the kernels line."""
+    import torch
+
+    from plnlp_tpu_torch.training import ModelConfig
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 3)
+    k1 = k1_bf16_phase(graph, graph_t, data, gen, card)
+    k2 = k2_bf16_phase(args, data, gen, card)
+    torch.cuda.empty_cache()
+    sage = sage_bf16_phase(args, dev, card, graph, graph_t, ds, split, data)
+    # 23. the card against the CPU in bf16 ---------------------------------
+    cfg = ModelConfig(
+        encoder="SAGE", predictor="MLP", gnn_num_layers=2, emb_hidden_channels=WIDTH,
+        gnn_hidden_channels=WIDTH, mlp_hidden_channels=WIDTH, batch_size=BATCH,
+        compute_dtype="bfloat16",
+    )
+    card_vs_cpu_step(cfg, small, args, dev, **BF16_STEP_TOLS)
+    cli = cli_bf16_path(args, dev, card, tmp)
+    k1["launches"] = sage["K1bf16"] + cli["K1bf16"]
+    k2["launches"] = sage["K2bf16"] + cli["K2bf16"]
+    log(f"[bf16] phases 20-25 in {time.perf_counter() - t0:.1f} s; launches: SAGE {sage}, CLI {cli}")
+    return [k1, k2]
+
+
+# ---------------------------------------------------------------------------
 # The training CLI
 # ---------------------------------------------------------------------------
 
@@ -893,9 +1342,6 @@ def watch_cli():
     block, the launches made in it."""
     import torch
 
-    from plnlp_tpu_torch.ops import flash_tiles as ft
-    from plnlp_tpu_torch.ops import scatter_matmul as sm
-    from plnlp_tpu_torch.ops import tile_matmul as tm
     from plnlp_tpu_torch.training import Model
 
     seen = {"steps": 0, "epochs": 0, "tests": 0, "first_params": None}
@@ -918,8 +1364,7 @@ def watch_cli():
     tee = _Tee(sys.stdout)
     Model.train_step, Model.train_epoch, Model.test = train_step, train_epoch, test
     torch.cuda.synchronize()
-    sm.LAUNCHES = tm.LAUNCHES = 0
-    ft.LAUNCHES.update(fwd=0, dq=0, dkv=0)
+    zero_counts()
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(tee):
@@ -929,8 +1374,7 @@ def watch_cli():
         for name, fn in orig.items():
             setattr(Model, name, fn)
     seen["seconds"] = time.perf_counter() - t0
-    seen["launches"] = {"K1": sm.LAUNCHES, "K2": tm.LAUNCHES, "K3": ft.LAUNCHES["fwd"],
-                        "K4": ft.LAUNCHES["dq"], "K5": ft.LAUNCHES["dkv"]}
+    seen["launches"] = launch_counts()
     seen["lines"] = tee.lines()
 
 
@@ -957,6 +1401,29 @@ def check_cli_scores(cli, argv, ckpt, pairs, scores, label):
     return exp["node_relabel"], err
 
 
+def collab_flags(seed: int) -> list:
+    """The reference README's ogbl-collab command over blocked CSR, on
+    synthetic data of collab's size with weights and years, one run."""
+    return [
+        "--data_name",
+        f"synthetic:hits:num_nodes={N_NODES},num_edges={N_EDGES},weighted=1,with_year=1",
+        "--predictor", "DOT", "--use_valedges_as_input", "True", "--year", "2010",
+        "--eval_last_best", "True", "--dropout", "0.3", "--adj_backend", "csr",
+        "--eval_steps", "1", "--runs", "1", "--seed", str(seed),
+    ]
+
+
+def ddi_flags(seed: int) -> list:
+    """The README's ogbl-ddi command (width 512, 3 negatives) at ddi's size,
+    one epoch of one run."""
+    return [
+        "--data_name", f"synthetic:hits:num_nodes={DDI_NODES},num_edges={DDI_EDGES}",
+        "--emb_hidden_channels", "512", "--gnn_hidden_channels", "512",
+        "--mlp_hidden_channels", "512", "--num_neg", "3", "--dropout", "0.3",
+        "--epochs", "1", "--eval_steps", "1", "--runs", "1", "--seed", str(seed),
+    ]
+
+
 def cli_path(args, dev, card, tmp):
     """Phases 17-19; returns the launches of K1-K5 in them."""
     import torch
@@ -965,19 +1432,15 @@ def cli_path(args, dev, card, tmp):
     from plnlp_tpu_torch.checkpoint import CheckpointManager
     from plnlp_tpu_torch.profiling import summarize_trace
 
-    total = dict.fromkeys(("K1", "K2", "K3", "K4", "K5"), 0)
+    total = dict.fromkeys(launch_counts(), 0)
     rng = np.random.default_rng(args.seed)
     t_phases = time.perf_counter()
 
     # 17. the collab command over blocked CSR ------------------------------
     ck, mf, pd = (os.path.join(tmp, name) for name in ("collab_ck", "collab.jsonl", "trace"))
-    collab = [
-        "--data_name",
-        f"synthetic:hits:num_nodes={N_NODES},num_edges={N_EDGES},weighted=1,with_year=1",
-        "--predictor", "DOT", "--use_valedges_as_input", "True", "--year", "2010",
-        "--eval_last_best", "True", "--dropout", "0.3", "--adj_backend", "csr",
-        "--eval_steps", "1", "--runs", "1", "--checkpoint_dir", ck, "--checkpoint_every", "1",
-        "--metrics_file", mf, "--profile_dir", pd, "--seed", str(args.seed),
+    collab = collab_flags(args.seed) + [
+        "--checkpoint_dir", ck, "--checkpoint_every", "1", "--metrics_file", mf,
+        "--profile_dir", pd,
     ]
     with watch_cli() as a:
         loggers = cli.main(collab + ["--epochs", "2"])
@@ -1049,13 +1512,7 @@ def cli_path(args, dev, card, tmp):
 
     # 18. the ddi command on the dense backend ------------------------------
     mf_b = os.path.join(tmp, "ddi.jsonl")
-    ddi = [
-        "--data_name", f"synthetic:hits:num_nodes={DDI_NODES},num_edges={DDI_EDGES}",
-        "--emb_hidden_channels", "512", "--gnn_hidden_channels", "512",
-        "--mlp_hidden_channels", "512", "--num_neg", "3", "--dropout", "0.3",
-        "--epochs", "1", "--eval_steps", "1", "--runs", "1", "--metrics_file", mf_b,
-        "--seed", str(args.seed),
-    ]
+    ddi = ddi_flags(args.seed) + ["--metrics_file", mf_b]
     with watch_cli() as b:
         loggers = cli.main(ddi)
     with open(mf_b) as f:
@@ -1333,10 +1790,12 @@ def main() -> int:
         f"({256 * n / rank_s:.4g} pairs/s); card {card}")
 
     del model, model_mlp, scorer, scorer_mlp, x, adj, lib_out
-    train_kernels, k1_train_launches = train_path(args, dev, card)
+    train_kernels, k1_train_launches, data, small = train_path(args, dev, card)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="plnlp_chip_smoke_") as tmp:
         cli_launches = cli_path(args, dev, card, tmp)
+        torch.cuda.empty_cache()
+        bf16_kernels = bf16_path(args, dev, card, graph, graph_t, ds, split, data, small, tmp)
     for entry, kernel in zip(train_kernels, ("K2", "K3", "K4", "K5")):
         entry["launches"] += cli_launches[kernel]
 
@@ -1352,7 +1811,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
-    }, *train_kernels]
+    }, *train_kernels, *bf16_kernels]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

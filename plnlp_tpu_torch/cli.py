@@ -140,8 +140,7 @@ def argument(argv=None):
     parser.add_argument("--dense_threshold", type=int, default=20000)
     parser.add_argument(
         "--block_rows", type=int, default=512,
-        help="scatter-matmul row-block size; 0 = autotune on this graph "
-        "(not ported yet: ROADMAP queue 1 item 10)",
+        help="scatter-matmul row-block size; 0 = autotune on this graph",
     )
     parser.add_argument("--block_edges", type=int, default=512)
     parser.add_argument("--seed", type=int, default=0)
@@ -150,8 +149,9 @@ def argument(argv=None):
         type=str,
         default="float32",
         choices=["float32", "bfloat16"],
-        help="encoder/predictor matmul dtype; bfloat16 is not ported yet "
-        "(ROADMAP queue 1 item 9)",
+        help="encoder/predictor compute dtype (parameters and optimizer stay "
+        "float32); TRANSFORMER with bfloat16 is not ported yet (ROADMAP queue 1 "
+        "item 12)",
     )
     parser.add_argument(
         "--remat", type=str2bool, nargs="?", const=True, default=False,
@@ -378,18 +378,14 @@ def _device(args, device):
     return default_device(f"cuda:{args.device}" if device is None else device)
 
 
-def _check_ported(args, use_dense: bool, serving: bool) -> None:
+def _check_ported(args) -> None:
     """Flag values that select code the port does not have yet raise, so
-    nothing else runs in their place."""
+    nothing else runs in their place (TRANSFORMER with bfloat16 raises in
+    ``Model``)."""
     if args.num_shards > 1 or args.mesh_data > 1:
         raise NotImplementedError(
             f"--num_shards {args.num_shards} / --mesh_data {args.mesh_data}: the "
             "multi-device runtime is not ported yet (ROADMAP queue 1 item 11)"
-        )
-    if args.block_rows == 0 and not use_dense and not serving:
-        raise NotImplementedError(
-            "--block_rows 0 (autotune) is not ported yet (ROADMAP queue 1 item 10); "
-            "pass a block size such as --block_rows 512"
         )
 
 
@@ -413,8 +409,19 @@ def prepare_experiment(args, log=print, serving=False, device=None):
     use_dense = args.adj_backend == "dense" or (
         args.adj_backend == "auto" and num_nodes <= args.dense_threshold
     )
-    _check_ported(args, use_dense, serving)
-    block = (args.block_rows or 512, args.block_edges)
+    _check_ported(args)
+    if args.block_rows == 0 and not use_dense and not serving:
+        from plnlp_tpu_torch.tuning import autotune_block
+
+        args.block_rows, args.block_edges = autotune_block(
+            surg["adj_src"], surg["adj_dst"], surg["adj_weight"],
+            num_nodes=num_nodes, dim=args.gnn_hidden_channels,
+            block_edges=args.block_edges, dtype=args.compute_dtype, log=log, device=dev,
+        )
+        log(f"autotuned block = ({args.block_rows}, {args.block_edges})")
+    elif args.block_rows == 0:
+        args.block_rows = 512
+    block = (args.block_rows, args.block_edges)
 
     # auto above the dense threshold: estimate the post-reorder tile
     # coverage (no tile build) and take hybrid when it clears the
@@ -486,7 +493,7 @@ def prepare_experiment(args, log=print, serving=False, device=None):
 
         graph = build_hybrid(
             *adj, num_nodes=num_nodes, tile=args.tile_size, min_fill=args.tile_min_fill,
-            block=block, reorder=None, device=dev,
+            block=block, dtype=args.compute_dtype, reorder=None, device=dev,
         )
         tile_mb = 2 * graph.num_tiles * graph.tile**2 * graph.tile_vals.element_size() >> 20
         log(

@@ -4,6 +4,13 @@
 //
 //     out[rb*R + blk_local[e]] += blk_weight[e] * x[blk_src[e]]
 //
+// for x and out in float32 or bfloat16 (the element type T is a template
+// parameter; plnlp_scatter_matmul_f32 and _bf16 are the two entry points).
+// In bfloat16 it computes what the TPU kernel computes with bf16 feats:
+// each weight rounded to bf16 first (the kernel casts its weighted one-hot
+// to feats' dtype), the products bf16 x bf16 (exact in f32) summed in f32,
+// and each output row rounded to bf16 once.  The carries stay f32, so a
+// row that crosses runs is rounded once too, at the second pass's store.
 // over every edge slot e of every sub-block of row-block rb, with rows that
 // no edge reaches equal to zero.  Sub-blocks of row-block rb are
 // [blk_rowptr[rb], blk_rowptr[rb+1]); each holds B edge slots, and slots
@@ -49,7 +56,15 @@
 // degree skew (every warp gets kRun slots), keeps kUnroll rows in flight per
 // warp, and reads each slot's metadata once per 256-column slice.  The carry
 // pass moves 2 rows a run (38 MB at the collab shape).
+//
+// In bfloat16 x and out move 2 bytes an element: 0.27 GB of compulsory
+// traffic at the collab shape (0.08 ms at 3.35 TB/s), and the gather halves
+// to E * D * 2 bytes (1.15 GB, 0.34 ms from HBM).  A lane's 8 columns of a
+// slice are then one 16-byte load (columns c0 + 8*lane .. +7) where f32
+// takes two (c0 + 4*lane and c0 + 128 + 4*lane); the carries, f32, follow
+// the same column layout as x.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -62,46 +77,104 @@ constexpr int kSlice = 256;   // columns per warp: 8 a lane
 constexpr int kUnroll = 4;    // source rows in flight per warp
 constexpr unsigned kFull = 0xffffffffu;
 
-// A lane's 8 columns of the slice that starts at c0: with VEC (D % 4 == 0,
-// 16-byte aligned rows) two float4 at c0 + 4*lane and c0 + 128 + 4*lane;
-// otherwise 8 scalars at c0 + lane + 32*j.  Columns at or past d read 0 and
-// are not written.
-template <bool VEC>
-__device__ __forceinline__ void load_cols(const float* row, int c0, int lane, int d,
+typedef __nv_bfloat16 bf16;
+
+// v rounded to the element type T, back in f32 (identity for f32)
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  if constexpr (sizeof(T) == 2) return __bfloat162float(__float2bfloat16(v));
+  return v;
+}
+
+__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load1(const bf16* p) {
+  return __uint_as_float((unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(bf16* p, float v) { *p = __float2bfloat16(v); }
+
+// W contiguous values at p (16-byte aligned) into v[off .. off+W), and back
+template <int W>
+__device__ __forceinline__ void load_run(const float* p, float (&v)[8], int off) {
+#pragma unroll
+  for (int k = 0; k < W / 4; ++k) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p) + k);
+    v[off + 4 * k] = a.x; v[off + 4 * k + 1] = a.y;
+    v[off + 4 * k + 2] = a.z; v[off + 4 * k + 3] = a.w;
+  }
+}
+template <int W>
+__device__ __forceinline__ void load_run(const bf16* p, float (&v)[8], int off) {
+  static_assert(W == 8, "a bf16 run is one 16-byte load");
+  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[off + 2 * k] = __uint_as_float(w[k] << 16);
+    v[off + 2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+  }
+}
+template <int W>
+__device__ __forceinline__ void store_run(float* p, const float (&v)[8], int off) {
+#pragma unroll
+  for (int k = 0; k < W / 4; ++k)
+    reinterpret_cast<float4*>(p)[k] = make_float4(v[off + 4 * k], v[off + 4 * k + 1],
+                                                  v[off + 4 * k + 2], v[off + 4 * k + 3]);
+}
+template <int W>
+__device__ __forceinline__ void store_run(bf16* p, const float (&v)[8], int off) {
+  static_assert(W == 8, "a bf16 run is one 16-byte store");
+  unsigned w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    w[k] = (unsigned)__bfloat16_as_ushort(__float2bfloat16(v[off + 2 * k])) |
+           ((unsigned)__bfloat16_as_ushort(__float2bfloat16(v[off + 2 * k + 1])) << 16);
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// A lane's 8 columns of the slice that starts at c0.  With VEC (d % W == 0,
+// 16-byte aligned rows) runs of W columns, W = 16 bytes of the kernel's
+// element type (4 for f32, 8 for bf16): value j is column
+// c0 + 32*W*(j/W) + W*lane + j%W; otherwise column c0 + lane + 32*j.
+// Columns at or past d read 0 and are not written.  U is the buffer's type
+// (x and out: the element type; the carries: f32 in the same layout).
+template <int W, bool VEC, typename U>
+__device__ __forceinline__ void load_cols(const U* row, int c0, int lane, int d,
                                           float (&v)[8]) {
   if (VEC) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = c0 + 128 * h + 4 * lane;
-      const float4 a = c < d ? __ldg(reinterpret_cast<const float4*>(row + c))
-                             : make_float4(0.f, 0.f, 0.f, 0.f);
-      v[4 * h] = a.x; v[4 * h + 1] = a.y; v[4 * h + 2] = a.z; v[4 * h + 3] = a.w;
+    for (int h = 0; h < 8 / W; ++h) {
+      const int c = c0 + 32 * W * h + W * lane;
+      if (c < d) {
+        load_run<W>(row + c, v, W * h);
+      } else {
+#pragma unroll
+        for (int i = 0; i < W; ++i) v[W * h + i] = 0.f;
+      }
     }
   } else {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int c = c0 + lane + 32 * j;
-      v[j] = c < d ? __ldg(row + c) : 0.f;
+      v[j] = c < d ? load1(row + c) : 0.f;
     }
   }
 }
 
-template <bool VEC>
-__device__ __forceinline__ void store_cols(float* row, int c0, int lane, int d,
+template <int W, bool VEC, typename U>
+__device__ __forceinline__ void store_cols(U* row, int c0, int lane, int d,
                                            const float (&v)[8]) {
   if (VEC) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = c0 + 128 * h + 4 * lane;
-      if (c < d)
-        *reinterpret_cast<float4*>(row + c) =
-            make_float4(v[4 * h], v[4 * h + 1], v[4 * h + 2], v[4 * h + 3]);
+    for (int h = 0; h < 8 / W; ++h) {
+      const int c = c0 + 32 * W * h + W * lane;
+      if (c < d) store_run<W>(row + c, v, W * h);
     }
   } else {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int c = c0 + lane + 32 * j;
-      if (c < d) row[c] = v[j];
+      if (c < d) store1(row + c, v[j]);
     }
   }
 }
@@ -111,18 +184,19 @@ __device__ __forceinline__ void store_cols(float* row, int c0, int lane, int d,
 // row's partial sum, carry row 2*run+1 the last row's when it differs.
 // At most 80 registers a thread (6 blocks an SM): more warps in flight pay
 // more than deeper unrolling (measured on the H100).
-template <bool VEC>
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(kThreads, 6)
-scatter_runs_kernel(const float* __restrict__ x,
+scatter_runs_kernel(const T* __restrict__ x,
                     const int* __restrict__ blk_src,
                     const int* __restrict__ blk_local,
                     const float* __restrict__ blk_weight,
                     const int* __restrict__ blk_rowptr,
-                    float* __restrict__ out,
+                    T* __restrict__ out,
                     float* __restrict__ carry,
                     int* __restrict__ run_rows,
                     int n_runs, int n_rowblocks, int out_rows, int block_rows,
                     int block_edges, int64_t n_slots, int d) {
+  constexpr int W = 16 / sizeof(T);
   const int lane = threadIdx.x & 31;
   const int run = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (run >= n_runs) return;  // warp-uniform
@@ -158,7 +232,8 @@ scatter_runs_kernel(const float* __restrict__ x,
       int src = 0, row = 0;
       float w = 0.f;
       if (e < s_end) {
-        w = __ldg(blk_weight + e);
+        // the weight as the TPU kernel's one-hot holds it: in T
+        w = round_to<T>(__ldg(blk_weight + e));
         if (w != 0.f) {
           row = r * block_rows + __ldg(blk_local + e);
           src = __ldg(blk_src + e);
@@ -181,7 +256,7 @@ scatter_runs_kernel(const float* __restrict__ x,
           const int s = __shfl_sync(kFull, src, j);
           const float ww = __shfl_sync(kFull, w, j);
           if (slot[u] >= 0) {
-            load_cols<VEC>(x + (int64_t)s * d, c0, lane, d, v[u]);
+            load_cols<W, VEC>(x + (int64_t)s * d, c0, lane, d, v[u]);
 #pragma unroll
             for (int c = 0; c < 8; ++c) v[u][c] *= ww;
           }
@@ -191,13 +266,13 @@ scatter_runs_kernel(const float* __restrict__ x,
           if (slot[u] < 0) break;  // warp-uniform
           const int rr = __shfl_sync(kFull, row, slot[u]);
           if (rr != cur) {
-            if (cur >= 0) {
-              // cur is the run's first row (may continue from the previous
-              // run: a carry) or an interior row (complete: written here)
-              float* dst = cur == first ? carry + (int64_t)run * 2 * d
-                                        : out + (int64_t)cur * d;
-              store_cols<VEC>(dst, c0, lane, d, acc);
-            }
+            // cur is the run's first row (may continue from the previous
+            // run: a carry, f32) or an interior row (complete: written
+            // here, rounded to T once)
+            if (cur >= 0 && cur == first)
+              store_cols<W, VEC>(carry + (int64_t)run * 2 * d, c0, lane, d, acc);
+            else if (cur >= 0)
+              store_cols<W, VEC>(out + (int64_t)cur * d, c0, lane, d, acc);
             if (first < 0) first = rr;
             cur = rr;
 #pragma unroll
@@ -210,8 +285,8 @@ scatter_runs_kernel(const float* __restrict__ x,
     }
   }
   if (cur >= 0)
-    store_cols<VEC>(carry + ((int64_t)run * 2 + (cur == first ? 0 : 1)) * d, c0, lane, d,
-                    acc);
+    store_cols<W, VEC>(carry + ((int64_t)run * 2 + (cur == first ? 0 : 1)) * d, c0, lane,
+                       d, acc);
   if (blockIdx.y == 0 && lane == 0) {
     run_rows[2 * run] = first;
     run_rows[2 * run + 1] = cur;
@@ -221,7 +296,7 @@ scatter_runs_kernel(const float* __restrict__ x,
 // Adds to acc the first-row carries of the runs after `run` that continue
 // `row`, in run order, and returns.  Runs are scanned 32 at a time; runs
 // without a live slot are skipped.
-template <bool VEC>
+template <int W, bool VEC>
 __device__ void add_continuations(const float* __restrict__ carry,
                                   const int* __restrict__ run_rows, int run, int row,
                                   int n_runs, int c0, int lane, int d, float (&acc)[8]) {
@@ -250,7 +325,7 @@ __device__ void add_continuations(const float* __restrict__ carry,
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
         if (k[u] >= 0)
-          load_cols<VEC>(carry + (int64_t)(j0 + k[u]) * 2 * d, c0, lane, d, v[u]);
+          load_cols<W, VEC>(carry + (int64_t)(j0 + k[u]) * 2 * d, c0, lane, d, v[u]);
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         if (k[u] < 0) break;
@@ -262,12 +337,14 @@ __device__ void add_continuations(const float* __restrict__ carry,
   }
 }
 
-// Pass 2: one warp per run writes the rows whose first carry it holds.
-template <bool VEC>
+// Pass 2: one warp per run writes the rows whose first carry it holds,
+// summed in f32 and rounded to T once.
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 scatter_carries_kernel(const float* __restrict__ carry,
                        const int* __restrict__ run_rows,
-                       float* __restrict__ out, int n_runs, int d) {
+                       T* __restrict__ out, int n_runs, int d) {
+  constexpr int W = 16 / sizeof(T);
   const int lane = threadIdx.x & 31;
   const int run = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (run >= n_runs) return;
@@ -290,56 +367,86 @@ scatter_carries_kernel(const float* __restrict__ carry,
   }
   float acc[8];
   if (prev_last != first) {  // this run holds the first carry of `first`
-    load_cols<VEC>(carry + (int64_t)run * 2 * d, c0, lane, d, acc);
-    if (last == first) add_continuations<VEC>(carry, run_rows, run, first, n_runs, c0, lane, d, acc);
-    store_cols<VEC>(out + (int64_t)first * d, c0, lane, d, acc);
+    load_cols<W, VEC>(carry + (int64_t)run * 2 * d, c0, lane, d, acc);
+    if (last == first)
+      add_continuations<W, VEC>(carry, run_rows, run, first, n_runs, c0, lane, d, acc);
+    store_cols<W, VEC>(out + (int64_t)first * d, c0, lane, d, acc);
   }
   if (last != first) {  // and always the first carry of its last row
-    load_cols<VEC>(carry + ((int64_t)run * 2 + 1) * d, c0, lane, d, acc);
-    add_continuations<VEC>(carry, run_rows, run, last, n_runs, c0, lane, d, acc);
-    store_cols<VEC>(out + (int64_t)last * d, c0, lane, d, acc);
+    load_cols<W, VEC>(carry + ((int64_t)run * 2 + 1) * d, c0, lane, d, acc);
+    add_continuations<W, VEC>(carry, run_rows, run, last, n_runs, c0, lane, d, acc);
+    store_cols<W, VEC>(out + (int64_t)last * d, c0, lane, d, acc);
   }
+}
+
+template <typename T, bool VEC>
+void launch(const T* x, const int* blk_src, const int* blk_local, const float* blk_weight,
+            const int* blk_rowptr, T* out, float* carry, int* run_rows, int n_runs,
+            int n_rowblocks, int out_rows, int block_rows, int block_edges,
+            int64_t n_slots, int d, cudaStream_t stream) {
+  const dim3 grid((n_runs + kWarps - 1) / kWarps, (d + kSlice - 1) / kSlice);
+  scatter_runs_kernel<T, VEC><<<grid, kThreads, 0, stream>>>(
+      x, blk_src, blk_local, blk_weight, blk_rowptr, out, carry, run_rows, n_runs,
+      n_rowblocks, out_rows, block_rows, block_edges, n_slots, d);
+  scatter_carries_kernel<T, VEC><<<grid, kThreads, 0, stream>>>(carry, run_rows, out,
+                                                               n_runs, d);
+}
+
+template <typename T>
+int launch_both(const void* x, const int* blk_src, const int* blk_local,
+                const float* blk_weight, const int* blk_rowptr, void* out, float* carry,
+                int* run_rows, int n_rowblocks, int out_rows, int block_rows, int nblk,
+                int block_edges, int d, int vec, cudaStream_t stream) {
+  const int64_t n_slots = (int64_t)nblk * block_edges;
+  const int n_runs = (int)((n_slots + kRun - 1) / kRun);
+  if (n_runs == 0) return 0;
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  if (vec)
+    launch<T, true>(xt, blk_src, blk_local, blk_weight, blk_rowptr, ot, carry, run_rows,
+                    n_runs, n_rowblocks, out_rows, block_rows, block_edges, n_slots, d,
+                    stream);
+  else
+    launch<T, false>(xt, blk_src, blk_local, blk_weight, blk_rowptr, ot, carry, run_rows,
+                     n_runs, n_rowblocks, out_rows, block_rows, block_edges, n_slots, d,
+                     stream);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Slots per run: the wrapper sizes the scratch from it (carry: 2 rows of d
-// floats a run; run_rows: 2 ints a run; n_runs = ceil(nblk * B / kRun)).
+// floats a run, f32 whatever the element type; run_rows: 2 ints a run;
+// n_runs = ceil(nblk * B / kRun)).
 extern "C" int plnlp_scatter_matmul_run_slots() { return kRun; }
 
-// Launches both passes on `stream` and returns cudaGetLastError() (0 =
+// Launch both passes on `stream` and return cudaGetLastError() (0 =
 // launched).  The caller guarantees shapes: x (n_src, d), blk_* (nblk,
 // block_edges), blk_rowptr (n_rowblocks + 1) non-decreasing with
 // n_rowblocks = ceil(out_rows / block_rows), out (out_rows, d) zeroed,
-// carry (2 * n_runs, d), run_rows (2 * n_runs), all contiguous; with vec,
-// d % 4 == 0 and x, out, carry 16-byte aligned.
-extern "C" int plnlp_scatter_matmul_f32(const float* x, const int* blk_src,
-                                        const int* blk_local,
-                                        const float* blk_weight,
-                                        const int* blk_rowptr, float* out,
-                                        float* carry, int* run_rows,
-                                        int n_rowblocks, int out_rows,
-                                        int block_rows, int nblk,
-                                        int block_edges, int d, int vec,
-                                        cudaStream_t stream) {
-  const int64_t n_slots = (int64_t)nblk * block_edges;
-  const int n_runs = (int)((n_slots + kRun - 1) / kRun);
-  if (n_runs == 0) return 0;
-  const dim3 grid((n_runs + kWarps - 1) / kWarps, (d + kSlice - 1) / kSlice);
-  if (vec) {
-    scatter_runs_kernel<true><<<grid, kThreads, 0, stream>>>(
-        x, blk_src, blk_local, blk_weight, blk_rowptr, out, carry, run_rows, n_runs,
-        n_rowblocks, out_rows, block_rows, block_edges, n_slots, d);
-    scatter_carries_kernel<true><<<grid, kThreads, 0, stream>>>(carry, run_rows, out,
-                                                                n_runs, d);
-  } else {
-    scatter_runs_kernel<false><<<grid, kThreads, 0, stream>>>(
-        x, blk_src, blk_local, blk_weight, blk_rowptr, out, carry, run_rows, n_runs,
-        n_rowblocks, out_rows, block_rows, block_edges, n_slots, d);
-    scatter_carries_kernel<false><<<grid, kThreads, 0, stream>>>(carry, run_rows, out,
-                                                                 n_runs, d);
-  }
-  return (int)cudaGetLastError();
+// carry (2 * n_runs, d) f32, run_rows (2 * n_runs), all contiguous; with
+// vec, d a multiple of 16 bytes' worth of elements (4 f32, 8 bf16) and x,
+// out, carry 16-byte aligned.  _f32: x and out float32; _bf16: bfloat16.
+extern "C" int plnlp_scatter_matmul_f32(const void* x, const int* blk_src,
+                                        const int* blk_local, const float* blk_weight,
+                                        const int* blk_rowptr, void* out, float* carry,
+                                        int* run_rows, int n_rowblocks, int out_rows,
+                                        int block_rows, int nblk, int block_edges, int d,
+                                        int vec, cudaStream_t stream) {
+  return launch_both<float>(x, blk_src, blk_local, blk_weight, blk_rowptr, out, carry,
+                            run_rows, n_rowblocks, out_rows, block_rows, nblk, block_edges,
+                            d, vec, stream);
+}
+
+extern "C" int plnlp_scatter_matmul_bf16(const void* x, const int* blk_src,
+                                         const int* blk_local, const float* blk_weight,
+                                         const int* blk_rowptr, void* out, float* carry,
+                                         int* run_rows, int n_rowblocks, int out_rows,
+                                         int block_rows, int nblk, int block_edges, int d,
+                                         int vec, cudaStream_t stream) {
+  return launch_both<bf16>(x, blk_src, blk_local, blk_weight, blk_rowptr, out, carry,
+                           run_rows, n_rowblocks, out_rows, block_rows, nblk, block_edges,
+                           d, vec, stream);
 }
 
 extern "C" const char* plnlp_cuda_error_string(int err) {

@@ -6,8 +6,12 @@
 //                            vals[i] @ x[tile_col[i]*T : (tile_col[i]+1)*T]
 //
 // with vals (nt, T, T) stored as int8 (exact 0/1 or small integer
-// adjacencies, negatives included) or f32, tiles sorted by row tile, and the
-// tiles of row tile rt at [tile_rowptr[rt], tile_rowptr[rt+1]).  Two
+// adjacencies, negatives included), f32 or bf16, tiles sorted by row tile,
+// and the tiles of row tile rt at [tile_rowptr[rt], tile_rowptr[rt+1]); x
+// and out are f32 (plnlp_tile_matmul_f32) or bf16 (plnlp_tile_matmul_bf16).
+// As the TPU kernel does, vals is cast to x's dtype before the product (f32
+// vals with bf16 x are rounded to bf16 first), the products are summed in
+// f32, and each output element is rounded to x's dtype once.  Two
 // differences from the TPU kernel, both in what the caller sees, neither in
 // the sums: row tiles that no tile reaches come out zero (the TPU kernel
 // leaves them undefined and its callers mask them with row_mask), and any
@@ -52,6 +56,12 @@
 // of a row tile are neighbours in launch order, and with the label-prop
 // order neighbouring row tiles share column tiles too.
 
+//
+// In bf16 (x and out 2 bytes an element, int8 tiles) the bytes at the same
+// shape are vals 174 MB + x 121 MB + out 121 MB + indices, 0.42 GB or
+// 0.12 ms; the row gather halves to nnz * D * 2 bytes (1.1 GB).  A lane's
+// 8 columns are then one 16-byte load (columns c0 + 8*lane .. +7).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -68,6 +78,19 @@ constexpr int kUnroll = 2;    // x rows in flight
 constexpr int kCap = 2 * kChunk;  // list entries per warp
 constexpr unsigned kFull = 0xffffffffu;
 
+typedef __nv_bfloat16 bf16;
+
+// the 8 bf16 packed in 4 words, low half first
+__device__ __forceinline__ void unpack8(const uint4 raw, float (&v)[8]) {
+  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[2 * k] = __uint_as_float(w[k] << 16);
+    v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+  }
+}
+
+// 8 consecutive tile values at p (16-byte aligned for f32 and bf16, 8 for int8)
 __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
   const float4 a = __ldg(reinterpret_cast<const float4*>(p));
   const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
@@ -84,54 +107,89 @@ __device__ __forceinline__ void load8(const int8_t* p, float (&v)[8]) {
   }
 }
 
-// A lane's 8 columns of the slice that starts at c0: with VEC (D % 4 == 0,
-// 16-byte aligned rows) two float4 at c0 + 4*lane and c0 + 128 + 4*lane;
-// otherwise 8 scalars at c0 + lane + 32*j.  Columns at or past d read 0 and
-// are not written.
-template <bool VEC>
-__device__ __forceinline__ void load_cols(const float* row, int c0, int lane, int d,
+__device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
+  unpack8(__ldg(reinterpret_cast<const uint4*>(p)), v);
+}
+
+__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load1(const bf16* p) {
+  return __uint_as_float((unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(bf16* p, float v) { *p = __float2bfloat16(v); }
+
+// W contiguous values of x at p (16-byte aligned) into v[off .. off+W),
+// and out back: W = 16 bytes of the element type (4 f32, 8 bf16)
+__device__ __forceinline__ void load_run(const float* p, float (&v)[8], int off) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  v[off] = a.x; v[off + 1] = a.y; v[off + 2] = a.z; v[off + 3] = a.w;
+}
+__device__ __forceinline__ void load_run(const bf16* p, float (&v)[8], int) {
+  unpack8(__ldg(reinterpret_cast<const uint4*>(p)), v);
+}
+__device__ __forceinline__ void store_run(float* p, const float (&v)[8], int off) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[off], v[off + 1], v[off + 2], v[off + 3]);
+}
+__device__ __forceinline__ void store_run(bf16* p, const float (&v)[8], int) {
+  unsigned w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    w[k] = (unsigned)__bfloat16_as_ushort(__float2bfloat16(v[2 * k])) |
+           ((unsigned)__bfloat16_as_ushort(__float2bfloat16(v[2 * k + 1])) << 16);
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// A lane's 8 columns of the slice that starts at c0.  With VEC (d a
+// multiple of W, 16-byte aligned rows) runs of W = 16 / sizeof(T) columns:
+// value j is column c0 + 32*W*(j/W) + W*lane + j%W; otherwise column
+// c0 + lane + 32*j.  Columns at or past d read 0 and are not written.
+template <bool VEC, typename T>
+__device__ __forceinline__ void load_cols(const T* row, int c0, int lane, int d,
                                           float (&v)[8]) {
+  constexpr int W = 16 / sizeof(T);
   if (VEC) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = c0 + 128 * h + 4 * lane;
-      const float4 a = c < d ? __ldg(reinterpret_cast<const float4*>(row + c))
-                             : make_float4(0.f, 0.f, 0.f, 0.f);
-      v[4 * h] = a.x; v[4 * h + 1] = a.y; v[4 * h + 2] = a.z; v[4 * h + 3] = a.w;
+    for (int h = 0; h < 8 / W; ++h) {
+      const int c = c0 + 32 * W * h + W * lane;
+      if (c < d) {
+        load_run(row + c, v, W * h);
+      } else {
+#pragma unroll
+        for (int i = 0; i < W; ++i) v[W * h + i] = 0.f;
+      }
     }
   } else {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int c = c0 + lane + 32 * j;
-      v[j] = c < d ? __ldg(row + c) : 0.f;
+      v[j] = c < d ? load1(row + c) : 0.f;
     }
   }
 }
 
-template <bool VEC>
-__device__ __forceinline__ void store_cols(float* row, int c0, int lane, int d,
+template <bool VEC, typename T>
+__device__ __forceinline__ void store_cols(T* row, int c0, int lane, int d,
                                            const float (&v)[8]) {
+  constexpr int W = 16 / sizeof(T);
   if (VEC) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = c0 + 128 * h + 4 * lane;
-      if (c < d)
-        *reinterpret_cast<float4*>(row + c) =
-            make_float4(v[4 * h], v[4 * h + 1], v[4 * h + 2], v[4 * h + 3]);
+    for (int h = 0; h < 8 / W; ++h) {
+      const int c = c0 + 32 * W * h + W * lane;
+      if (c < d) store_run(row + c, v, W * h);
     }
   } else {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int c = c0 + lane + 32 * j;
-      if (c < d) row[c] = v[j];
+      if (c < d) store1(row + c, v[j]);
     }
   }
 }
 
 // acc += sum over the list's n entries of val * x[row], in list order.
-template <bool VEC>
+template <bool VEC, typename T>
 __device__ __forceinline__ void drain(const int* lst_row, const float* lst_val, int n,
-                                      const float* __restrict__ x, int c0, int lane, int d,
+                                      const T* __restrict__ x, int c0, int lane, int d,
                                       float (&acc)[8]) {
   __syncwarp();
   for (int b = 0; b < n; b += kUnroll) {
@@ -156,14 +214,15 @@ __device__ __forceinline__ void drain(const int* lst_row, const float* lst_val, 
 }
 
 // At most 64 registers a thread (4 blocks, 32 warps an SM): more warps in
-// flight pay more than deeper unrolling (measured on the H100).
-template <typename V, bool VEC>
+// flight pay more than deeper unrolling (measured on the H100).  V is the
+// tile store's type, T that of x and out.
+template <typename V, typename T, bool VEC>
 __global__ void __launch_bounds__(kThreads, 4)
 tile_matmul_kernel(const V* __restrict__ vals,
                    const int* __restrict__ tile_col,
                    const int* __restrict__ tile_rowptr,
-                   const float* __restrict__ x,
-                   float* __restrict__ out,
+                   const T* __restrict__ x,
+                   T* __restrict__ out,
                    int tile, int n_x, int out_rows, int d) {
   __shared__ int lst_row_all[kWarps][kCap];
   __shared__ float lst_val_all[kWarps][kCap];
@@ -199,6 +258,11 @@ tile_matmul_kernel(const V* __restrict__ vals,
         if (q < n_items && col < tile) {
           load8(vals + i * tt + (int64_t)r * tile + col, v[g]);
           xcol[g] = __ldg(tile_col + i) * tile + col;
+          if constexpr (sizeof(T) == 2 && sizeof(V) == 4) {
+            // vals.astype(x.dtype): f32 values rounded to bf16 first
+#pragma unroll
+            for (int j = 0; j < 8; ++j) v[g][j] = __bfloat162float(__float2bfloat16(v[g][j]));
+          }
         } else {
 #pragma unroll
           for (int j = 0; j < 8; ++j) v[g][j] = 0.f;
@@ -240,43 +304,64 @@ tile_matmul_kernel(const V* __restrict__ vals,
   }
 }
 
-template <typename V>
-void launch(const V* vals, const int* tile_col, const int* tile_rowptr, const float* x,
-            float* out, int n_rowtiles, int tile, int n_x, int out_rows, int d, bool vec,
+template <typename V, typename T>
+void launch(const V* vals, const int* tile_col, const int* tile_rowptr, const T* x, T* out,
+            int n_rowtiles, int tile, int n_x, int out_rows, int d, bool vec,
             cudaStream_t stream) {
   // the row slices of one row tile are neighbours in launch order, so they
   // run together and share their tiles' x rows in L2
   const dim3 grid((tile + kRowsPerBlock - 1) / kRowsPerBlock, n_rowtiles,
                   (d + kSlice - 1) / kSlice);
   if (vec)
-    tile_matmul_kernel<V, true><<<grid, kThreads, 0, stream>>>(
+    tile_matmul_kernel<V, T, true><<<grid, kThreads, 0, stream>>>(
         vals, tile_col, tile_rowptr, x, out, tile, n_x, out_rows, d);
   else
-    tile_matmul_kernel<V, false><<<grid, kThreads, 0, stream>>>(
+    tile_matmul_kernel<V, T, false><<<grid, kThreads, 0, stream>>>(
         vals, tile_col, tile_rowptr, x, out, tile, n_x, out_rows, d);
+}
+
+// vals_kind: 0 float32, 1 int8, 2 bfloat16
+template <typename T>
+int launch_any(const void* vals, int vals_kind, const int* tile_col, const int* tile_rowptr,
+               const void* x, void* out, int n_rowtiles, int tile, int n_x, int out_rows,
+               int d, int vec, cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  if (vals_kind == 1)
+    launch(static_cast<const int8_t*>(vals), tile_col, tile_rowptr, xt, ot, n_rowtiles, tile,
+           n_x, out_rows, d, vec != 0, stream);
+  else if (vals_kind == 2)
+    launch(static_cast<const bf16*>(vals), tile_col, tile_rowptr, xt, ot, n_rowtiles, tile,
+           n_x, out_rows, d, vec != 0, stream);
+  else
+    launch(static_cast<const float*>(vals), tile_col, tile_rowptr, xt, ot, n_rowtiles, tile,
+           n_x, out_rows, d, vec != 0, stream);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched).
-// The caller guarantees: vals (nt, tile, tile) int8 (vals_int8 != 0) or
-// f32, contiguous and 16-byte aligned; tile a multiple of 16; tile_col (nt)
-// and tile_rowptr (n_rowtiles + 1) int32; x (n_x, d) and out (out_rows, d)
-// f32 and contiguous, with vec: d % 4 == 0 and both 16-byte aligned;
-// out_rows <= n_rowtiles * tile.
-extern "C" int plnlp_tile_matmul_f32(const void* vals, int vals_int8,
-                                     const int* tile_col,
-                                     const int* tile_rowptr, const float* x,
-                                     float* out, int n_rowtiles, int tile,
-                                     int n_x, int out_rows, int d, int vec,
-                                     cudaStream_t stream) {
-  if (vals_int8)
-    launch(static_cast<const int8_t*>(vals), tile_col, tile_rowptr, x, out, n_rowtiles,
-           tile, n_x, out_rows, d, vec != 0, stream);
-  else
-    launch(static_cast<const float*>(vals), tile_col, tile_rowptr, x, out, n_rowtiles,
-           tile, n_x, out_rows, d, vec != 0, stream);
-  return (int)cudaGetLastError();
+// The caller guarantees: vals (nt, tile, tile) of vals_kind (0 float32,
+// 1 int8, 2 bfloat16), contiguous and 16-byte aligned; tile a multiple of
+// 16; tile_col (nt) and tile_rowptr (n_rowtiles + 1) int32; x (n_x, d) and
+// out (out_rows, d) contiguous, float32 (_f32) or bfloat16 (_bf16), with
+// vec: d a multiple of 16 bytes' worth of elements (4 f32, 8 bf16) and both
+// 16-byte aligned; out_rows <= n_rowtiles * tile.
+extern "C" int plnlp_tile_matmul_f32(const void* vals, int vals_kind, const int* tile_col,
+                                     const int* tile_rowptr, const void* x, void* out,
+                                     int n_rowtiles, int tile, int n_x, int out_rows, int d,
+                                     int vec, cudaStream_t stream) {
+  return launch_any<float>(vals, vals_kind, tile_col, tile_rowptr, x, out, n_rowtiles, tile,
+                           n_x, out_rows, d, vec, stream);
+}
+
+extern "C" int plnlp_tile_matmul_bf16(const void* vals, int vals_kind, const int* tile_col,
+                                      const int* tile_rowptr, const void* x, void* out,
+                                      int n_rowtiles, int tile, int n_x, int out_rows, int d,
+                                      int vec, cudaStream_t stream) {
+  return launch_any<bf16>(vals, vals_kind, tile_col, tile_rowptr, x, out, n_rowtiles, tile,
+                          n_x, out_rows, d, vec, stream);
 }
 
 extern "C" const char* plnlp_cuda_error_string(int err) {

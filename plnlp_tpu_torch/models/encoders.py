@@ -36,8 +36,8 @@ from torch.utils.checkpoint import checkpoint
 
 from plnlp_tpu_torch.dense import DenseAdj
 from plnlp_tpu_torch.graph import Graph, _pad_to
+from plnlp_tpu_torch.nn import apply_linear, glorot_init, torch_linear_init
 from plnlp_tpu_torch.nn import dropout as _dropout
-from plnlp_tpu_torch.nn import glorot_init, torch_linear_init
 from plnlp_tpu_torch.ops.sddmm import edge_softmax
 from plnlp_tpu_torch.ops.spmm import spmm
 from plnlp_tpu_torch.ops.tile_attention import hybrid_transformer_conv
@@ -57,19 +57,19 @@ def _layer_dims(in_ch, hidden_ch, out_ch, num_layers):
 
 def _sage_conv(lp, graph, graph_t, x):
     agg = spmm(graph, x, reduce="mean", graph_t=graph_t)
-    return lp["lin_l"](agg) + lp["lin_r"](x)
+    return apply_linear(lp["lin_l"], agg) + apply_linear(lp["lin_r"], x)
 
 
 def _gcn_conv(lp, graph, graph_t, x):
     # GCNConv order: out = Â (x W) + b (bias added after aggregation).
     lin = lp["lin"]
-    hw = x @ lin.weight.t()
-    return spmm(graph, hw, reduce="sum", graph_t=graph_t) + lin.bias
+    hw = x @ lin.weight.to(x.dtype).t()
+    return spmm(graph, hw, reduce="sum", graph_t=graph_t) + lin.bias.to(x.dtype)
 
 
 def _wsage_conv(lp, graph, graph_t, x):
     agg = spmm(graph, x, reduce="sum", graph_t=graph_t)
-    return lp["lin_rel"](agg) + lp["lin_root"](x)
+    return apply_linear(lp["lin_rel"], agg) + apply_linear(lp["lin_root"], x)
 
 
 def _transformer_conv(lp, graph, graph_t, x):
@@ -81,7 +81,7 @@ def _transformer_conv(lp, graph, graph_t, x):
             "(GraphParallel: ROADMAP queue 1 item 11, multi-device runtime)"
         )
     d = lp["lin_query"].out_features
-    q, k, v = lp["lin_query"](x), lp["lin_key"](x), lp["lin_value"](x)
+    q, k, v = (apply_linear(lp[name], x) for name in ("lin_query", "lin_key", "lin_value"))
     if isinstance(graph, DenseAdj):
         # The mask is a select, never a product: the row max is taken over
         # the edges only, exp sees 0 off the edges (no inf, so no NaN in the
@@ -92,7 +92,7 @@ def _transformer_conv(lp, graph, graph_t, x):
         m = torch.where(mask, logits, f32.min).amax(1, keepdim=True)
         ex = torch.where(mask, torch.exp(torch.where(mask, logits - m, 0.0)), 0.0)
         denom = ex.sum(1, keepdim=True).clamp(min=f32.tiny)
-        return (ex / denom) @ v + lp["lin_skip"](x)
+        return (ex / denom) @ v + apply_linear(lp["lin_skip"], x)
     # per-edge path; k and v are gathered at the same ids in one wide gather
     kv = torch.cat([k, v], -1)[graph.senders]
     logits = (q[graph.receivers] * kv[:, :d]).sum(-1) / math.sqrt(d)
@@ -100,7 +100,7 @@ def _transformer_conv(lp, graph, graph_t, x):
     agg = x.new_zeros((graph.num_nodes, d)).index_add_(
         0, graph.receivers, kv[:, d:] * alpha[:, None]
     )
-    return agg + lp["lin_skip"](x)
+    return agg + apply_linear(lp["lin_skip"], x)
 
 
 _CONVS = {

@@ -1,5 +1,6 @@
 """Pairwise edge scorers s(u, v): the six predictor families (port of
-plnlp_tpu/models/predictors.py), with dropout between layers at train time.
+plnlp_tpu/models/predictors.py), with dropout between layers at train time,
+in the dtype of their inputs (``nn.apply_linear``).
 
 Output shapes follow the reference: MLP/MLPCAT return (B, 1);
 DOT/BIL/MLPDOT/MLPBIL return (B,).  MLPDOT/MLPBIL keep the reference
@@ -13,8 +14,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from plnlp_tpu_torch.nn import apply_linear, torch_linear_init
 from plnlp_tpu_torch.nn import dropout as _dropout
-from plnlp_tpu_torch.nn import torch_linear_init
 
 PREDICTOR_NAMES = ("DOT", "BIL", "MLP", "MLPDOT", "MLPBIL", "MLPCAT")
 
@@ -37,14 +38,14 @@ def _stack(gen, dims):
 def _mlp_final_scalar(lins, x, rate=0.0, gen=None, train=False):
     """relu + dropout between layers, the last linear."""
     for lin in lins[:-1]:
-        x = _dropout(torch.relu(lin(x)), rate, gen, train)
-    return lins[-1](x)
+        x = _dropout(torch.relu(apply_linear(lin, x)), rate, gen, train)
+    return apply_linear(lins[-1], x)
 
 
 def _tower(lins, x, rate=0.0, gen=None, train=False):
     """relu + dropout after every layer (MLPDOT/MLPBIL towers)."""
     for lin in lins:
-        x = _dropout(torch.relu(lin(x)), rate, gen, train)
+        x = _dropout(torch.relu(apply_linear(lin, x)), rate, gen, train)
     return x
 
 
@@ -84,7 +85,7 @@ class Predictor(nn.Module):
         if name == "DOT":
             return (x_i * x_j).sum(-1)
         if name == "BIL":
-            return (self.bilin(x_i) * x_j).sum(-1)
+            return (apply_linear(self.bilin, x_i) * x_j).sum(-1)
         if name == "MLP":
             return _mlp_final_scalar(self.lins, x_i * x_j, *drop)
         if name == "MLPCAT":
@@ -94,7 +95,7 @@ class Predictor(nn.Module):
         ti, tj = _tower(self.lins, x_i, *drop), _tower(self.lins, x_j, *drop)
         if name == "MLPDOT":
             return (ti * tj).sum(-1)
-        return (self.bilin(ti) * tj).sum(-1)
+        return (apply_linear(self.bilin, ti) * tj).sum(-1)
 
 
 _FACTORIZABLE = ("DOT", "BIL", "MLPDOT", "MLPBIL")
@@ -125,11 +126,11 @@ def grid_scores_left(pred: Predictor, h_src: torch.Tensor, right: torch.Tensor) 
     if pred.name == "DOT":
         left = h_src
     elif pred.name == "BIL":
-        left = pred.bilin(h_src)
+        left = apply_linear(pred.bilin, h_src)
     elif pred.name == "MLPDOT":
         left = _tower(pred.lins, h_src)
     elif pred.name == "MLPBIL":
-        left = pred.bilin(_tower(pred.lins, h_src))
+        left = apply_linear(pred.bilin, _tower(pred.lins, h_src))
     else:
         raise _not_factorizable(pred.name)
     return left @ right.t()

@@ -1,5 +1,6 @@
-"""Parameter initializers drawing from an explicit ``torch.Generator``
-(port of plnlp_tpu/nn.py).
+"""Parameter initializers drawing from an explicit ``torch.Generator``,
+the linear layer in the activation dtype, and dropout (port of
+plnlp_tpu/nn.py).
 
 Each reproduces the torch/PyG default the reference trains with:
 
@@ -13,6 +14,11 @@ whatever device the model later moves to.  :func:`dropout` draws its mask
 from the generator it is handed (on the tensor's device); the JAX package
 draws from ``jax.random``, so the two masks never agree and parity holds
 at rate 0.
+
+:func:`apply_linear` is the one way the encoders and predictors apply a
+linear: parameters are stored float32 (master weights) and cast to the
+activation's dtype, so bfloat16 activations run bfloat16 matmuls and the
+gradients reach the float32 parameters through the casts.
 """
 
 from __future__ import annotations
@@ -23,13 +29,26 @@ from typing import Optional
 import torch
 from torch import nn
 
-__all__ = ["linear", "torch_linear_init", "glorot_init", "xavier_uniform", "dropout"]
+__all__ = [
+    "COMPUTE_DTYPES", "linear", "apply_linear", "torch_linear_init", "glorot_init",
+    "xavier_uniform", "dropout",
+]
+
+# --compute_dtype names and their torch dtypes
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def linear(fan_in: int, fan_out: int, bias: bool = True) -> nn.Linear:
     """An ``nn.Linear`` (weight ``(out, in)``) whose parameters are left
     uninitialized, so building it draws nothing from the global RNG."""
     return nn.utils.skip_init(nn.Linear, fan_in, fan_out, bias=bias)
+
+
+def apply_linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``lin(x)`` in x's dtype: the float32 weight and bias cast to
+    ``x.dtype`` (the JAX package's ``nn.linear``)."""
+    bias = None if lin.bias is None else lin.bias.to(x.dtype)
+    return torch.nn.functional.linear(x, lin.weight.to(x.dtype), bias)
 
 
 def _uniform(gen: torch.Generator, shape, bound: float) -> torch.Tensor:
@@ -68,7 +87,8 @@ def xavier_uniform(gen: torch.Generator, shape) -> torch.Tensor:
 def dropout(
     x: torch.Tensor, rate: float, gen: Optional[torch.Generator], train: bool
 ) -> torch.Tensor:
-    """torch.nn.functional.dropout semantics (inverted scaling at train).
+    """torch.nn.functional.dropout semantics (inverted scaling at train),
+    in x's dtype.
 
     The keep mask is drawn from ``gen``; nothing happens outside training,
     at rate 0 or without a generator, as in the JAX package."""

@@ -29,6 +29,7 @@ import math
 
 import torch
 
+from plnlp_tpu_torch.nn import apply_linear
 from plnlp_tpu_torch.ops.flash_tiles import flash_tiles_dkv, flash_tiles_dq, flash_tiles_fwd
 from plnlp_tpu_torch.ops.tile_spmm import HybridGraph, is_padded_operand
 
@@ -130,8 +131,7 @@ def hybrid_transformer_conv(lp, hg: HybridGraph, x: torch.Tensor) -> torch.Tenso
     if not is_padded_operand(hg, x):
         x = x[: hg.num_nodes]
     xs = x if hg.perm_in is None else x.index_select(0, hg.perm_in)
-    lin_q = lp["lin_query"]
-    q, k, v = lin_q(xs), lp["lin_key"](xs), lp["lin_value"](xs)
-    y = FlashAttn.apply(q, k, v, hg, 1.0 / math.sqrt(lin_q.out_features))
-    out = y + lp["lin_skip"](xs)
+    q, k, v = (apply_linear(lp[name], xs) for name in ("lin_query", "lin_key", "lin_value"))
+    y = FlashAttn.apply(q, k, v, hg, 1.0 / math.sqrt(lp["lin_query"].out_features))
+    out = y + apply_linear(lp["lin_skip"], xs)
     return out if hg.perm_out is None else out.index_select(0, hg.perm_out)

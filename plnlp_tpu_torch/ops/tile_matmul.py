@@ -5,8 +5,10 @@ Replaces the TPU kernel ``plnlp_tpu/ops/pallas_tiles.py::_kernel``.  With
 
     out[tile_row[i]] += vals[i] @ x_tiles[tile_col[i]]
 
-accumulated in f32, with row tiles that no tile reaches equal to zero (the
-TPU kernel leaves them undefined; its callers mask them with ``row_mask``).
+with ``vals`` cast to x's dtype before the product, accumulated in f32 and
+rounded to x's dtype once (x float32 or bfloat16), and row tiles that no
+tile reaches equal to zero (the TPU kernel leaves them undefined; its
+callers mask them with ``row_mask``).
 Rows of x past its end read as zero, so x may have num_nodes rows or
 num_nodes rounded up to T.  The CUDA kernel (``csrc/tile_matmul.cu``, whose
 header note gives its design and bound) gives each output row to one warp,
@@ -28,8 +30,13 @@ import torch
 __all__ = ["tile_matmul", "tile_matmul_reference"]
 
 # Kernel launches since the count was last set to 0 (read by chip_smoke.py
-# to show that the main path ran through the kernel).
+# to show that the main path ran through the kernel): LAUNCHES for float32
+# x, LAUNCHES_BF16 for bfloat16 x.
 LAUNCHES = 0
+LAUNCHES_BF16 = 0
+
+_ENTRY = {torch.float32: "plnlp_tile_matmul_f32", torch.bfloat16: "plnlp_tile_matmul_bf16"}
+_VALS_KIND = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2}
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
     ctypes.c_void_p
@@ -40,16 +47,18 @@ def tile_matmul_reference(
     vals, tile_row, tile_col, x, n_rowtiles: int, out_rows: int
 ) -> torch.Tensor:
     """Plain PyTorch version: one ``bmm`` over the gathered x tiles, then
-    ``index_add_`` of the products into their row tiles."""
+    ``index_add_`` of the products into their row tiles, in float32 with
+    ``vals`` cast to x's dtype first; the result is rounded to x's dtype
+    once (a no-op for float32 x)."""
     t = vals.shape[1]
     d = x.shape[1]
     n_pad = -(-x.shape[0] // t) * t
     if n_pad != x.shape[0]:
         x = torch.cat([x, x.new_zeros((n_pad - x.shape[0], d))])
     x_tiles = x.reshape(n_pad // t, t, d)
-    part = torch.bmm(vals.to(x.dtype), x_tiles[tile_col.long()])
-    out = x.new_zeros((n_rowtiles, t, d)).index_add_(0, tile_row.long(), part)
-    return out.reshape(n_rowtiles * t, d)[:out_rows]
+    part = torch.bmm(vals.to(x.dtype).float(), x_tiles[tile_col.long()].float())
+    out = part.new_zeros((n_rowtiles, t, d)).index_add_(0, tile_row.long(), part)
+    return out.reshape(n_rowtiles * t, d)[:out_rows].to(x.dtype)
 
 
 def _check(vals, tile_row, tile_col, tile_rowptr, x, out_rows):
@@ -61,10 +70,10 @@ def _check(vals, tile_row, tile_col, tile_rowptr, x, out_rows):
             raise ValueError(f"{name} must be contiguous")
         if name.startswith("tile_") and t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
-    if vals.dtype not in (torch.int8, torch.float32):
-        raise TypeError(f"vals must be int8 or float32, got {vals.dtype}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"x must be float32, got {x.dtype}")
+    if vals.dtype not in _VALS_KIND:
+        raise TypeError(f"vals must be int8, float32 or bfloat16, got {vals.dtype}")
+    if x.dtype not in _ENTRY:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if vals.dim() != 3 or vals.shape[1] != vals.shape[2]:
         raise ValueError(f"vals must be (nt, T, T), got {tuple(vals.shape)}")
     if vals.shape[1] % 16:
@@ -78,16 +87,17 @@ def _check(vals, tile_row, tile_col, tile_rowptr, x, out_rows):
 
 
 def tile_matmul(
-    vals: torch.Tensor,  # (nt, T, T) int8 or float32, sorted by row tile
+    vals: torch.Tensor,  # (nt, T, T) int8, float32 or bfloat16, sorted by row tile
     tile_row: torch.Tensor,  # (nt,) int32 row tile per tile, sorted
     tile_col: torch.Tensor,  # (nt,) int32 column tile per tile
     tile_rowptr: torch.Tensor,  # (n_rowtiles + 1,) int32 first tile per row tile
-    x: torch.Tensor,  # (n_x, D) float32
+    x: torch.Tensor,  # (n_x, D) float32 or bfloat16
     out_rows: int,
 ) -> torch.Tensor:
-    """Returns (out_rows, D).  CUDA tensors launch the kernel on the current
-    stream; CPU tensors take :func:`tile_matmul_reference`."""
-    global LAUNCHES
+    """Returns (out_rows, D) in x's dtype.  CUDA tensors launch the kernel
+    of x's dtype on the current stream (never the other one, never through
+    a cast); CPU tensors take :func:`tile_matmul_reference`."""
+    global LAUNCHES, LAUNCHES_BF16
     _check(vals, tile_row, tile_col, tile_rowptr, x, out_rows)
     n_rowtiles = tile_rowptr.shape[0] - 1
     if x.device.type == "cpu":
@@ -99,22 +109,26 @@ def tile_matmul(
     from plnlp_tpu_torch import _build
 
     lib = _build.load("tile_matmul")
-    fn = lib.plnlp_tile_matmul_f32
+    fn = getattr(lib, _ENTRY[x.dtype])
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     d = x.shape[1]
-    out = torch.empty((out_rows, d), dtype=torch.float32, device=x.device)
+    out = torch.empty((out_rows, d), dtype=x.dtype, device=x.device)
     if out_rows == 0 or d == 0:
         return out
     t = vals.shape[1]
-    vec = d % 4 == 0 and x.data_ptr() % 16 == 0
+    # 16 bytes of x's elements per vector load: 4 f32 or 8 bf16
+    vec = d % (16 // x.element_size()) == 0 and x.data_ptr() % 16 == 0
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(
-            vals.data_ptr(), int(vals.dtype == torch.int8), tile_col.data_ptr(),
+            vals.data_ptr(), _VALS_KIND[vals.dtype], tile_col.data_ptr(),
             tile_rowptr.data_ptr(), x.data_ptr(), out.data_ptr(),
             n_rowtiles, t, x.shape[0], out_rows, d, int(vec), stream,
         )
-    _build.check(lib, err, f"tile_matmul launch (T={t}, D={d})")
-    LAUNCHES += 1
+    _build.check(lib, err, f"tile_matmul launch ({vals.dtype} tiles, {x.dtype} x, T={t}, D={d})")
+    if x.dtype == torch.bfloat16:
+        LAUNCHES_BF16 += 1
+    else:
+        LAUNCHES += 1
     return out

@@ -11,9 +11,10 @@ which reads the x tile as one contiguous block; tiles with fewer than
 
 * Host build, in NumPy (copied from the JAX package): ``label_prop_order``,
   ``multilevel_order``, ``estimate_hybrid`` and ``build_hybrid``, with the
-  int8 tile store when exact, the ``max_tile_bytes`` guard and the
-  zero-tile case.  Only the NumPy label-prop sweep is ported; it gives the
-  same labels as the JAX package's native one.
+  int8 tile store when exact (else the compute dtype), the
+  ``max_tile_bytes`` guard and the zero-tile case.  Only the NumPy
+  label-prop sweep is ported; it gives the same labels as the JAX
+  package's native one.
 * The operator, :class:`HybridSpmm`: the forward is the tile kernel K2
   (``ops/tile_matmul.py``) over ``tile_vals`` plus the blocked kernel K1
   over ``res_graph``; the backward (dX = Aᵀ dY) is K2 over the transposed
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from plnlp_tpu_torch.graph import Graph, _blocks_np, _csr_np, _pad_to, _to_graph
+from plnlp_tpu_torch.nn import COMPUTE_DTYPES
 from plnlp_tpu_torch.ops.scatter_matmul import scatter_matmul
 from plnlp_tpu_torch.ops.tile_matmul import tile_matmul
 
@@ -265,6 +267,7 @@ def build_hybrid(
     symmetrize: bool = False,
     coalesce: bool = True,
     max_tile_bytes: int = 2 * 1024**3,
+    dtype="float32",
     reorder: Optional[str] = None,
     order: Optional[np.ndarray] = None,
     device=None,
@@ -276,10 +279,13 @@ def build_hybrid(
     ``reorder`` ("labelprop", "multilevel") relabels internally and sets
     ``perm_in``/``perm_out``; ``order`` is a precomputed reorder
     (order[slot] = old id), e.g. from :func:`estimate_hybrid`.  Tiles are
-    stored int8 when that is exact, else float32 (the JAX package's bf16
-    store is ROADMAP queue 1 item 9)."""
+    stored int8 when that is exact, else in ``dtype``, the compute dtype
+    ("float32" or "bfloat16", rounded to nearest even), as the JAX package
+    stores them; the kernel casts them to x's dtype in registers."""
     from plnlp_tpu_torch import default_device
 
+    if dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"dtype must be one of {sorted(COMPUTE_DTYPES)}, got {dtype!r}")
     device = default_device(device)
     csr = _csr_np(src, dst, weight, num_nodes, symmetrize, coalesce)
     es = csr["senders"].astype(np.int64)
@@ -314,7 +320,8 @@ def build_hybrid(
     trow_t, tcol_t = tcol[order_t], trow[order_t]
 
     n_r = _pad_to(num_nodes, tile) // tile
-    store = np.int8 if (np.all(vals == np.round(vals)) and np.abs(vals).max() <= 127) else np.float32
+    exact = np.all(vals == np.round(vals)) and np.abs(vals).max() <= 127
+    store = torch.int8 if exact else COMPUTE_DTYPES[dtype]
 
     res_g = res_gt = None
     if len(r_src):
@@ -326,15 +333,18 @@ def build_hybrid(
         res_g = _to_graph(res_csr, _blocks_np(res_csr, *res_block), device)
         res_gt = _to_graph(res_csr_t, _blocks_np(res_csr_t, *res_block), device)
 
-    def _t(a):
-        return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    def _t(a, dt=None):
+        if a is None:
+            return None
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return (t if dt is None else t.to(dt)).to(device)
 
     return HybridGraph(
-        tile_vals=_t(vals.astype(store)),
+        tile_vals=_t(vals, store),
         tile_row=_t(trow.astype(np.int32)),
         tile_col=_t(tcol.astype(np.int32)),
         tile_rowptr=_t(_rowptr(trow, n_r)),
-        tile_vals_t=_t(vals_t.astype(store)),
+        tile_vals_t=_t(vals_t, store),
         tile_row_t=_t(trow_t.astype(np.int32)),
         tile_col_t=_t(tcol_t.astype(np.int32)),
         tile_rowptr_t=_t(_rowptr(trow_t, n_r)),

@@ -13,6 +13,12 @@ the predictor, with the JAX package's input-layer sizing.
 * Evaluation: ``encode`` runs the full-graph encoder once and appends the
   mean row (index -1 resolves to it); ``batch_predict`` scores pairs in
   chunks; ``test`` is the eval loop.
+* ``compute_dtype`` ("float32" or "bfloat16"): the input features are cast
+  to it, so the encoder and the predictor run in it at training; the
+  parameters, their gradients, the clipping and the optimizer state stay
+  float32, the loss is taken in float32, and ``encode`` casts h to float32,
+  so evaluation, serving and ranking score in float32, as the JAX package
+  does.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ from plnlp_tpu_torch import default_device
 from plnlp_tpu_torch.losses import calculate_loss
 from plnlp_tpu_torch.metrics import evaluate_hits, evaluate_mrr
 from plnlp_tpu_torch.models import Encoder, Predictor
-from plnlp_tpu_torch.nn import xavier_uniform
+from plnlp_tpu_torch.nn import COMPUTE_DTYPES, xavier_uniform
 from plnlp_tpu_torch.ops.tile_spmm import HybridGraph
 from plnlp_tpu_torch.sampling import (
     global_neg_sample,
@@ -43,7 +49,7 @@ __all__ = ["ModelConfig", "Model", "adjust_lr"]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The model/optimization surface of the reference CLI; same fields and
-    defaults as plnlp_tpu's.  Only float32 ``compute_dtype`` is ported."""
+    defaults as plnlp_tpu's."""
 
     encoder: str = "SAGE"
     predictor: str = "MLP"
@@ -85,12 +91,17 @@ class Model(nn.Module):
         device=None,
     ):
         super().__init__()
-        if cfg.compute_dtype != "float32":
+        if cfg.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(
+                f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, got {cfg.compute_dtype!r}"
+            )
+        if cfg.compute_dtype == "bfloat16" and cfg.encoder.upper() == "TRANSFORMER":
             raise NotImplementedError(
-                f"compute_dtype {cfg.compute_dtype} is not ported yet (float32 "
-                "only; bf16 is ROADMAP queue 1 item 9)"
+                "TRANSFORMER with compute_dtype bfloat16 is not ported yet (ROADMAP queue 1 "
+                "item 12: K3-K5 on bf16 q/k/v with ops/transformer.py); use float32"
             )
         self.cfg = cfg
+        self.compute_dtype = COMPUTE_DTYPES[cfg.compute_dtype]
         self.num_nodes = num_nodes
         self.num_node_feats = num_node_feats
         self.pretrain_emb = pretrain_emb
@@ -169,11 +180,11 @@ class Model(nn.Module):
 
     def loss(self, graph, graph_t, node_feats, pos, neg, margin, mask, gen=None) -> torch.Tensor:
         """Train-mode forward and loss for one pair batch: the full-graph
-        encode, then ONE predictor call over pos ⊕ neg pairs; the loss in
-        f32."""
+        encode and ONE predictor call over pos ⊕ neg pairs in the compute
+        dtype; the loss in f32."""
         cfg = self.cfg
         h = self.encoder(
-            graph, self._input_feat(node_feats), graph_t,
+            graph, self._input_feat(node_feats).to(self.compute_dtype), graph_t,
             dropout=cfg.dropout, train=True, gen=gen, remat=cfg.remat,
         )
         b = pos.shape[0]
@@ -301,9 +312,11 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def encode(self, graph, graph_t=None, node_feats=None) -> torch.Tensor:
-        """(N + 1, D) node representations in eval mode; row N is the mean
-        row that index -1 resolves to (reference model.py:191-194)."""
-        h = self.encoder(graph, self._input_feat(node_feats), graph_t=graph_t)
+        """(N + 1, D) float32 node representations in eval mode (the encoder
+        runs in the compute dtype); row N is the mean row that index -1
+        resolves to (reference model.py:191-194)."""
+        x = self._input_feat(node_feats).to(self.compute_dtype)
+        h = self.encoder(graph, x, graph_t=graph_t).float()  # metrics rank in f32
         return torch.cat([h, h.mean(0, keepdim=True)], dim=0)
 
     @torch.no_grad()

@@ -230,10 +230,9 @@ def test_score_pairs_equals_restored_scorer(tmp_path, train_backend):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (dict(compute_dtype="bfloat16"), "item 9"),
+    (dict(compute_dtype="bfloat16", encoder="TRANSFORMER"), "item 12"),
     (dict(num_shards=2), "item 11"),
     (dict(mesh_data=2), "item 11"),
-    (dict(block_rows=0, adj_backend="csr"), "item 10"),
 ])
 def test_unported_flags_raise(flag, item):
     with pytest.raises(NotImplementedError, match=item):

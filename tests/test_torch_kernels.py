@@ -149,6 +149,83 @@ def test_tile_matmul_matches_plain_version(store, t, d, fill):
         assert not got[r * t: (r + 1) * t].any()
 
 
+def _within_bf16_tolerance(got, want, abs_sum):
+    # the kernel and the plain version each round an f32 sum once to bf16:
+    # the f32 sums' tolerance plus one bf16 ulp (2**-7 relative) for the
+    # two roundings
+    return bool(((got.float() - want.float()).abs()
+                 <= 1e-5 + 1e-6 * abs_sum + 2**-7 * want.float().abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 100, 256, 300])
+@pytest.mark.parametrize("kind", ["symmetrized", "skewed-512x512"])
+def test_scatter_matmul_bf16_matches_plain_version(cuda_graphs, kind, d):
+    """K1 in bf16 against its plain version (f32 sums of bf16-rounded
+    weights times bf16 x, one rounding a row): within one bf16 ulp beyond
+    the f32 sums' tolerance; rows no edge reaches exactly zero; a second
+    launch gives the same bits; only the bf16 count moves.  d = 100 and 300
+    take the scalar column path (d % 8 != 0)."""
+    if kind == "symmetrized":
+        n, graphs = cuda_graphs
+        x = torch.randn(n, d, device="cuda")
+    else:
+        n, graphs = _skewed_graphs((512, 512))
+        x = torch.randn(n + 37, d, device="cuda")
+    x = x.to(torch.bfloat16)
+    for g in graphs:
+        args = (g.blk_src, g.blk_local, g.blk_weight, g.blk_rowptr, g.block_rows, n)
+        before = (sm.LAUNCHES, sm.LAUNCHES_BF16)
+        got = sm.scatter_matmul(x, *args)
+        again = sm.scatter_matmul(x, *args)
+        torch.cuda.synchronize()
+        assert (sm.LAUNCHES, sm.LAUNCHES_BF16) == (before[0], before[1] + 2)
+        assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+        want = sm.scatter_matmul_reference(x, *args)
+        abs_sum = sm.scatter_matmul_reference(
+            x.float().abs(), g.blk_src, g.blk_local, g.blk_weight.abs(), *args[3:]
+        )
+        assert _within_bf16_tolerance(got, want, abs_sum)
+        assert not got[(g.in_degrees == 0).nonzero()[:, 0]].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t,d", [(32, 24), (64, 100), (256, 256), (128, 520)])
+def test_tile_matmul_bf16_matches_plain_version(store, t, d):
+    """K2 with bf16 x against its plain version (vals cast to bf16, f32
+    sums, one rounding an element), on ~1%-full tiles with one full row
+    (the list drains) and row tiles no tile reaches (zero); a second launch
+    gives the same bits; only the bf16 count moves."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n_r, nt = 7, 13
+    trow = torch.sort(torch.tensor([0, 1, 3, 4, 6], device="cuda")[
+        torch.randint(0, 5, (nt,), device="cuda", generator=gen)]).values.int()
+    tcol = torch.randint(0, n_r, (nt,), device="cuda", generator=gen).int()
+    ptr = torch.cat([trow.new_zeros(1), torch.bincount(trow, minlength=n_r).cumsum(0).int()])
+    mask = torch.rand(nt, t, t, device="cuda", generator=gen) < 0.01
+    mask[:, 3, :] = True
+    if store is torch.int8:
+        vals = (mask * torch.randint(-2, 3, (nt, t, t), device="cuda", generator=gen)).to(store)
+    else:
+        vals = (mask * torch.randn(nt, t, t, device="cuda", generator=gen)).to(store)
+    n_x = n_r * t - 3
+    x = torch.randn(n_x, d, device="cuda", generator=gen).to(torch.bfloat16)
+    before = (tm.LAUNCHES, tm.LAUNCHES_BF16)
+    got = tm.tile_matmul(vals, trow, tcol, ptr, x, n_x)
+    again = tm.tile_matmul(vals, trow, tcol, ptr, x, n_x)
+    torch.cuda.synchronize()
+    assert (tm.LAUNCHES, tm.LAUNCHES_BF16) == (before[0], before[1] + 2)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    want = tm.tile_matmul_reference(vals, trow, tcol, x, n_r, n_x)
+    abs_sum = tm.tile_matmul_reference(vals.to(torch.bfloat16).float().abs(), trow, tcol,
+                                       x.float().abs(), n_r, n_x)
+    assert _within_bf16_tolerance(got, want, abs_sum)
+    for r in (2, 5):
+        assert not got[r * t: (r + 1) * t].any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("reorder", [None, "labelprop"])
 def test_hybrid_spmm_gradient_matches_autograd(reorder):
