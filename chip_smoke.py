@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the plnlp_tpu_torch serving and training paths (SAGE and
-TRANSFORMER, float32 and bfloat16) and the training CLI on one NVIDIA GPU
-and check them.
+TRANSFORMER, float32 and bfloat16, over the hybrid operand and blocked
+CSR) and the training CLI on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -105,9 +105,30 @@ Phases (any failure exits non-zero):
    epoch 2 whose GEMM kernels and their time a step it logs;
 25. the CLI's ddi command with ``--compute_dtype bfloat16`` on the dense
    backend (no kernel launch);
-26. print the card's name and power limit, the ``{"kernels": [...]}`` line
-   (K1 to K5 and the bf16 K1 and K2), and ``{"ok": true, "device":
-   {...}}`` as the last line.
+27. K3, K4 and K5's bf16 entry points against their bf16 plain versions
+   at the SBM training shape (q, k, v, g bf16 at n_pad rows), on the int8
+   tiles and on the same tiles stored in bf16: the f32 sums' tolerance plus
+   2**-7 of the terms' magnitudes, a second launch bitwise equal, no f32
+   launch; their times, the plain versions' and the bound;
+28. TRANSFORMER + MLP + AUC in bf16 (width 256, 2 layers, batch 65,536,
+   Adam) for one epoch over the SBM's hybrid operand, ``Model.test`` and
+   ``Scorer.score``: only the bf16 K3-K5 launch (2 each a step, K3 2 an
+   encode), parameters and Adam's state f32; step, epoch and encode times
+   beside phase 16's; then the card-against-CPU step in bf16;
+29. TRANSFORMER over the collab graph's blocked CSR with ``tconv_map``
+   (``ops/transformer.py`` on K1): the layer and its gradients against
+   autograd through the per-edge path on the card in f32 and bf16, K1 1
+   launch forward and 3 backward; one epoch in each dtype (K1 8 a step in
+   x's dtype only) with step and epoch times, and the per-edge path's
+   step; a small graph with single-in-edge rows, self loops and duplicate
+   edges through K1 on the card against its plain version on the CPU;
+30. the CLI: the collab command with ``--encoder TRANSFORMER`` over csr for
+   one epoch in f32 and one in bf16 (only K1-bf16), phase 19's SBM command
+   in bf16 (``auto`` -> hybrid, only the bf16 K3-K5) and its
+   ``--score_pairs`` against the restored Scorer;
+31. print the card's name and power limit, the ``{"kernels": [...]}`` line
+   (K1 to K5, the bf16 K1 and K2, and the bf16 K3, K4 and K5), and
+   ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -208,14 +229,16 @@ def errors(got, want):
     return float(diff.max()), float(rel.max()), ok
 
 
-def sum_errors(got, want, abs_sum, ulp_rtol=0.0):
+def sum_errors(got, want, abs_sum, ulp_rtol=0.0, sum_rtol=SUM_RTOL):
     """(max abs error, max of error / tolerance, within tolerance) for a
     kernel output against its plain version; ``abs_sum`` is the same sum
     over the terms' magnitudes.  A bf16 output passes ``ulp_rtol`` =
     BF16_RTOL: kernel and plain version each round an f32 sum once to
-    bf16, so they may differ by one bf16 ulp beyond the sums' tolerance."""
+    bf16, so they may differ by one bf16 ulp beyond the sums' tolerance.
+    An f32 sum of terms that were each rounded to bf16 passes ``sum_rtol``
+    = SUM_RTOL + BF16_RTOL: a term may round one bf16 ulp apart."""
     diff = (got.float() - want.float()).abs()
-    tol = SUM_ATOL + SUM_RTOL * abs_sum + ulp_rtol * want.float().abs()
+    tol = SUM_ATOL + sum_rtol * abs_sum + ulp_rtol * want.float().abs()
     ratio = float((diff / tol).max())
     return float(diff.max()), ratio, ratio <= 1.0
 
@@ -579,7 +602,7 @@ def flash_bwd_magnitudes(vals, tile_row, tile_col, q, k, v, g, stats, scale, tra
     n_r = -(-rows // t)
     qt, kt, vt, gt = (_tiles(a, n_r, t) for a in (q, k, v, g))
     m, den, delta = _row_stats(stats, n_r, t)
-    out = [q.new_zeros((n_r, t, d)) for _ in range(2 if transposed else 1)]
+    out = [qt.new_zeros((n_r, t, d)) for _ in range(2 if transposed else 1)]
     for c in _chunks(vals.shape[0]):
         r, cc = tile_row[c].long(), tile_col[c].long()
         if transposed:  # rows are sources r, columns destinations cc
@@ -600,17 +623,19 @@ def flash_bwd_magnitudes(vals, tile_row, tile_col, q, k, v, g, stats, scale, tra
     return [o.reshape(-1, d)[:rows] for o in out]
 
 
-def fwd_errors(num, ml, num_r, ml_r, num_a):
+def fwd_errors(num, ml, num_r, ml_r, num_a, sum_rtol=SUM_RTOL):
     """K3's (num, ml) against the plain version's (num_r, ml_r), with
     ``num_a`` the plain num over |v|: (max error / tolerance over y = num /
     den, m and den; whether the rows without a tile edge are exactly
-    (0, 0, -inf); the mask of the rows with one)."""
+    (0, 0, -inf); the mask of the rows with one).  bf16 features pass
+    ``sum_rtol`` = SUM_RTOL + BF16_RTOL (each p is rounded to bf16 before
+    its product with v, against the kernel's running max)."""
     import torch
 
     has = ml_r[:, 1] > 0
     den_r = ml_r[:, 1].clamp(min=1e-30)[:, None]
     y_err = ((num / ml[:, 1:].clamp(min=1e-30) - num_r / den_r).abs()[has]
-             / (SUM_ATOL + SUM_RTOL * num_a / den_r)[has])
+             / (SUM_ATOL + sum_rtol * num_a / den_r)[has])
     m_err = (ml[has, 0] - ml_r[has, 0]).abs() / (1e-6 * (1 + ml_r[has, 0].abs()))
     den_err = (ml[has, 1] - ml_r[has, 1]).abs() / (1e-5 * ml_r[has, 1])
     ratio = max(float(y_err.max()), float(m_err.max()), float(den_err.max()))
@@ -620,13 +645,13 @@ def fwd_errors(num, ml, num_r, ml_r, num_a):
 
 
 def check_flash_kernels(fwd_set, bwd_set, q, k, v, g, n):
-    """Phase 12: K3, K4 and K5 against their plain versions on the tile
-    sets ``fwd_set`` and ``bwd_set`` (vals, tile_row, tile_col,
-    tile_rowptr), with q, k, v, g of one (rows, D) shape; rows from ``n``
-    on have no edge and must come out empty; a second launch of K3, of K4
-    and of K5 must give the same bits (each row's sum runs in one order).
-    Returns the stats (M, den, δ) the backward checks used and each
-    kernel's max abs error."""
+    """Phases 12 and 27: K3, K4 and K5 against their plain versions on the
+    tile sets ``fwd_set`` and ``bwd_set`` (vals, tile_row, tile_col,
+    tile_rowptr), with q, k, v, g of one (rows, D) shape and dtype (f32, or
+    bf16 for the bf16 entry points); rows from ``n`` on have no edge and
+    must come out empty; a second launch of K3, of K4 and of K5 must give
+    the same bits (each row's sum runs in one order).  Returns the stats
+    (M, den, δ) the backward checks used and each kernel's max abs error."""
     import torch
 
     from plnlp_tpu_torch.ops import flash_tiles as ft
@@ -635,32 +660,38 @@ def check_flash_kernels(fwd_set, bwd_set, q, k, v, g, n):
     scale = 1.0 / math.sqrt(q.shape[1])
     n_r = fwd_set[3].shape[0] - 1
     errs = {}
+    bf16 = q.dtype == torch.bfloat16
+    # bf16: each term's weight is rounded to bf16 before its product, so a
+    # term may land one bf16 ulp (2**-7 of it) from the plain version's
+    sum_rtol = SUM_RTOL + (BF16_RTOL if bf16 else 0.0)
+    label = " bf16" if bf16 else ""
 
-    # K3: y = num / den within 1e-5 + 1e-6 Σ p|v| / den, m within 1e-6 (1 + |m|),
-    # den within 1e-5 relative (a sum of positive terms); rows with no tile
-    # edge, the pad rows among them, exactly (0, 0, -inf)
+    # K3: y = num / den within 1e-5 + 1e-6 Σ p|v| / den (+ 2**-7 Σ p|v| / den
+    # in bf16), m within 1e-6 (1 + |m|), den within 1e-5 relative (a sum of
+    # positive f32 terms); rows with no tile edge, the pad rows among them,
+    # exactly (0, 0, -inf)
     num, ml = ft.flash_tiles_fwd(*fwd_set, q, k, v, scale)
     again = ft.flash_tiles_fwd(*fwd_set, q, k, v, scale)
     num_r, ml_r = ft.flash_tiles_fwd_reference(*fwd_set[:3], q, k, v, n_r, scale)
     num_a, _ = ft.flash_tiles_fwd_reference(*fwd_set[:3], q, k, v.abs(), n_r, scale)
     torch.cuda.synchronize()
     same = torch.equal(num, again[0]) and torch.equal(ml, again[1])
-    log(f"[check] flash_tiles_fwd: a second launch gives the same bits: {same}")
-    require(same, "flash_tiles_fwd: a second launch differs")
-    ratio, empty_ok, has = fwd_errors(num, ml, num_r, ml_r, num_a)
+    log(f"[check] flash_tiles_fwd{label}: a second launch gives the same bits: {same}")
+    require(same, f"flash_tiles_fwd{label}: a second launch differs")
+    ratio, empty_ok, has = fwd_errors(num, ml, num_r, ml_r, num_a, sum_rtol)
     errs["fwd"] = float((num - num_r).abs().max())
-    log(f"[check] flash_tiles_fwd (K3) on tile_vals at {n_pad} rows: max_abs num "
-        f"{errs['fwd']:.3e}; max err/tol {ratio:.3f} (y {SUM_ATOL} + {SUM_RTOL}*sum p|v|/den, "
-        f"m 1e-6 (1+|m|), den 1e-5 den); {int(has.sum())} rows with a tile edge; rows without "
-        f"one (0, 0, -inf): {empty_ok}")
-    require(ratio <= 1.0 and empty_ok, "flash_tiles_fwd disagrees with its plain version")
+    log(f"[check] flash_tiles_fwd{label} (K3) on {fwd_set[0].dtype} tiles at {n_pad} rows: "
+        f"max_abs num {errs['fwd']:.3e}; max err/tol {ratio:.3f} (y {SUM_ATOL} + {sum_rtol:.4g}"
+        f"*sum p|v|/den, m 1e-6 (1+|m|), den 1e-5 den); {int(has.sum())} rows with a tile edge; "
+        f"rows without one (0, 0, -inf): {empty_ok}")
+    require(ratio <= 1.0 and empty_ok, f"flash_tiles_fwd{label} disagrees with its plain version")
     require(not has[n:].any(), "flash_tiles_fwd: a pad row has a tile edge")
 
     # the stats the backward gets: the global max and denominator of these
     # tiles, and δ = Σ_d g·y
     m_glob = torch.where(torch.isfinite(ml_r[:, 0]), ml_r[:, 0], 0.0)
     den_glob = ml_r[:, 1].clamp(min=torch.finfo(torch.float32).tiny)
-    delta = (g * num_r / den_glob[:, None]).sum(-1)
+    delta = (g.float() * num_r / den_glob[:, None]).sum(-1)
     stats = torch.stack([m_glob, den_glob, delta], 1).contiguous()
     del num, ml, again, num_r, num_a
 
@@ -678,16 +709,16 @@ def check_flash_kernels(fwd_set, bwd_set, q, k, v, g, n):
             got, again, want = [got], [again], [want]
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in zip(got, again))
-        log(f"[check] flash_tiles_{kind}: a second launch gives the same bits: {same}")
-        require(same, f"flash_tiles_{kind}: a second launch differs")
+        log(f"[check] flash_tiles_{kind}{label}: a second launch gives the same bits: {same}")
+        require(same, f"flash_tiles_{kind}{label}: a second launch differs")
         errs[kind] = 0.0
         for name, a, b, sc in zip(("dq",) if kind == "dq" else ("dk", "dv"), got, want, mags):
-            ea, ratio, ok = sum_errors(a, b, sc)
+            ea, ratio, ok = sum_errors(a, b, sc, sum_rtol=sum_rtol)
             errs[kind] = max(errs[kind], ea)
-            log(f"[check] flash_tiles_{kind} ({'K4' if kind == 'dq' else 'K5'}) {name} at "
-                f"{n_pad} rows: max_abs={ea:.3e} max err/tol={ratio:.3f} (tol {SUM_ATOL} + "
-                f"{SUM_RTOL}*sum|terms|) ok={ok}")
-            require(ok, f"flash_tiles_{kind} {name} disagrees with its plain version")
+            log(f"[check] flash_tiles_{kind}{label} ({'K4' if kind == 'dq' else 'K5'}) {name} "
+                f"on {tiles[0].dtype} tiles at {n_pad} rows: max_abs={ea:.3e} max err/tol="
+                f"{ratio:.3f} (tol {SUM_ATOL} + {sum_rtol:.4g}*sum|terms|) ok={ok}")
+            require(ok, f"flash_tiles_{kind}{label} {name} disagrees with its plain version")
             require(not a[n:].any(), f"flash_tiles_{kind} {name}: rows past num_nodes not zero")
         del got, again, want, mags
     return stats, errs
@@ -860,8 +891,10 @@ def transformer_path(args, dev, card, cfg, data, small, gen):
         "fwd": (4, 2, 4), "dq": (5, 3, 6), "dkv": (6, 3, 8),
     }
     entries = []
+    data["transformer_f32"] = {}
     for kind, (kernel, plain) in calls.items():
         ms = cuda_ms(kernel, reps=5, runs=3)
+        data["transformer_f32"][kind] = ms
         plain_ms = cuda_ms(plain, reps=1, runs=3)
         arrays, stat_cols, per = shape[kind]
         nbytes = vals_bytes + arrays * feat_bytes + n_pad * stat_cols * 4 + idx_bytes
@@ -898,6 +931,7 @@ def transformer_path(args, dev, card, cfg, data, small, gen):
     log(f"[time] TRANSFORMER train step (batch {BATCH}, 2 layers + MLP, hybrid) {step_ms:.3f} ms; "
         f"epoch {epoch_s:.3f} s ({steps} steps, sampling included); encode {encode_ms:.3f} ms; "
         f"card {card}")
+    data["transformer_f32"].update(step_ms=step_ms, epoch_s=epoch_s, encode_ms=encode_ms)
     return entries
 
 
@@ -914,7 +948,8 @@ def launch_counts():
 
     return {"K1": sm.LAUNCHES, "K1bf16": sm.LAUNCHES_BF16, "K2": tm.LAUNCHES,
             "K2bf16": tm.LAUNCHES_BF16, "K3": ft.LAUNCHES["fwd"], "K4": ft.LAUNCHES["dq"],
-            "K5": ft.LAUNCHES["dkv"]}
+            "K5": ft.LAUNCHES["dkv"], "K3bf16": ft.LAUNCHES_BF16["fwd"],
+            "K4bf16": ft.LAUNCHES_BF16["dq"], "K5bf16": ft.LAUNCHES_BF16["dkv"]}
 
 
 def zero_counts() -> None:
@@ -924,6 +959,7 @@ def zero_counts() -> None:
 
     sm.LAUNCHES = sm.LAUNCHES_BF16 = tm.LAUNCHES = tm.LAUNCHES_BF16 = 0
     ft.LAUNCHES.update(fwd=0, dq=0, dkv=0)
+    ft.LAUNCHES_BF16.update(fwd=0, dq=0, dkv=0)
 
 
 def library_call_ms(fn):
@@ -1312,6 +1348,519 @@ def bf16_path(args, dev, card, graph, graph_t, ds, split, data, small, tmp):
 
 
 # ---------------------------------------------------------------------------
+# TRANSFORMER in bf16 (K3-K5 bf16) and over blocked CSR (ops/transformer.py)
+# ---------------------------------------------------------------------------
+
+# bf16 against f32 (one computation in bf16, the other in f32 on the same
+# bf16-rounded inputs, or bf16 in another place of rounding): a layer's
+# output agg + skip within the JAX package's bf16 bound, rtol 3e-2 and atol
+# 1e-2, taken relative to |agg| + |skip| (both are rounded to bf16 at their
+# own magnitude, up to ~3 here, before they cancel: a row of two in-edges
+# came out 0.0196 apart at a value of -0.027); gradients within phase 23's
+# 3e-2 in relative L2 norm.
+BF16_VALUE_TOL = dict(rtol=3e-2, atol=1e-2)
+BF16_GRAD_TOL = BF16_STEP_TOLS["grad_tol"]
+
+
+def conv_value_errors(got, want, skip, dtype):
+    """(max abs error, max error / tolerance) of a TransformerConv layer's
+    output ``got`` against ``want`` = agg + ``skip``: rtol = atol = 1e-4 in
+    f32; in bf16 BF16_VALUE_TOL relative to |agg| + |skip|."""
+    import torch
+
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        tol = TOL + TOL * want.float().abs()
+    else:
+        terms = (want.float() - skip.float()).abs() + skip.float().abs()
+        tol = BF16_VALUE_TOL["atol"] + BF16_VALUE_TOL["rtol"] * terms
+    return float(diff.max()), float((diff / tol).max())
+
+
+def flash_bf16_phase(data, gen, card):
+    """Phase 27: K3, K4 and K5's bf16 entry points against their bf16 plain
+    versions at the SBM training shape (q, k, v, g bf16 at the padded-carry
+    n_pad rows), on the int8 tile store and on the same tiles stored in
+    bf16, each with a second launch bitwise equal and no f32 launch; their
+    times, the plain versions', and the bound.  Returns their entries of
+    the kernels line (launches filled in later)."""
+    import torch
+
+    from plnlp_tpu_torch.ops import flash_tiles as ft
+
+    hg = data["hg"]
+    n = hg.num_nodes
+    n_r = hg.tile_rowptr.shape[0] - 1
+    n_pad = n_r * TILE
+    dev = hg.tile_vals.device
+    fwd_set = (hg.tile_vals, hg.tile_row, hg.tile_col, hg.tile_rowptr)
+    bwd_set = (hg.tile_vals_t, hg.tile_row_t, hg.tile_col_t, hg.tile_rowptr_t)
+    q, k, v, g = (torch.randn(n_pad, WIDTH, device=dev, generator=gen).to(torch.bfloat16)
+                  for _ in range(4))
+    zero_counts()
+    stats, errs = check_flash_kernels(fwd_set, bwd_set, q, k, v, g, n)
+    bf_fwd = (fwd_set[0].to(torch.bfloat16), *fwd_set[1:])
+    bf_bwd = (bwd_set[0].to(torch.bfloat16), *bwd_set[1:])
+    _, errs_b = check_flash_kernels(bf_fwd, bf_bwd, q, k, v, g, n)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    require(counts == _only(counts, K3bf16=4, K4bf16=4, K5bf16=4),
+            f"bf16 flash checks: launches {counts} (want 2 of each bf16 entry a tile store, no "
+            "f32 launch)")
+    scale = 1.0 / math.sqrt(WIDTH)
+    calls = {
+        "fwd": (lambda: ft.flash_tiles_fwd(*fwd_set, q, k, v, scale),
+                lambda: ft.flash_tiles_fwd_reference(*fwd_set[:3], q, k, v, n_r, scale)),
+        "dq": (lambda: ft.flash_tiles_dq(*fwd_set, q, k, v, g, stats, scale),
+               lambda: ft.flash_tiles_dq_reference(*fwd_set[:3], q, k, v, g, stats, n_r, scale)),
+        "dkv": (lambda: ft.flash_tiles_dkv(*bwd_set, q, k, v, g, stats, scale),
+                lambda: ft.flash_tiles_dkv_reference(*bwd_set[:3], q, k, v, g, stats, n_r,
+                                                     scale)),
+    }
+    # Least time for the same function on these inputs: the int8 tiles read
+    # once, each bf16 input (q, k, v and, in the backward, g) read once at 2
+    # bytes, each f32 output written once at 4, the stats and the indices;
+    # 4, 6 and 8 FLOP per nonzero and column at the bf16 peak.
+    nnz = int((hg.tile_vals != 0).sum())
+    vals_bytes = hg.tile_vals.numel() * hg.tile_vals.element_size()
+    idx_bytes = (2 * hg.num_tiles + n_r + 1) * 4
+    shape = {  # (bf16 arrays read, f32 arrays written, stats columns, FLOP per nonzero per column)
+        "fwd": (3, 1, 2, 4), "dq": (4, 1, 3, 6), "dkv": (4, 2, 3, 8),
+    }
+    on_bf16_tiles = {
+        "fwd": lambda: ft.flash_tiles_fwd(*bf_fwd, q, k, v, scale),
+        "dq": lambda: ft.flash_tiles_dq(*bf_fwd, q, k, v, g, stats, scale),
+        "dkv": lambda: ft.flash_tiles_dkv(*bf_bwd, q, k, v, g, stats, scale),
+    }
+    f32_ms = data.get("transformer_f32", {})
+    entries = []
+    for kind, (kernel, plain) in calls.items():
+        ms = cuda_ms(kernel, reps=5, runs=3)
+        ms_bt = cuda_ms(on_bf16_tiles[kind], reps=5, runs=3)
+        plain_ms = cuda_ms(plain, reps=1, runs=3)
+        reads, writes, stat_cols, per = shape[kind]
+        nbytes = (vals_bytes + reads * n_pad * WIDTH * 2 + writes * n_pad * WIDTH * 4
+                  + n_pad * stat_cols * 4 + idx_bytes)
+        flops = per * nnz * WIDTH
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        gather = nnz * (2 * WIDTH * 2 + (12 if kind == "dkv" else 0))
+        f32 = f32_ms.get(kind)
+        log(f"[time] flash_tiles_{kind} bf16 {ms:.4f} ms on the int8 tiles, {ms_bt:.4f} ms on "
+            f"bf16 tiles (q, k, v, g bf16 at {n_pad} rows) [f32 entry, phase 16: "
+            + (f"{f32:.4f} ms" if f32 is not None else "not run") + f"]; plain {plain_ms:.4f} ms; "
+            f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e9:.3f} GB take {t_bytes:.4f} ms, "
+            f"{flops / 1e9:.3f} GFLOP take {t_ops:.4f} ms at the bf16 peak); its row gather, "
+            f"{gather / 1e9:.3f} GB, takes {gather / HBM_BYTES_PER_S * 1e3:.4f} ms from HBM; "
+            f"card {card}")
+        entries.append({
+            "name": f"flash_tiles_{kind}_bf16",
+            "route": "cuda",
+            "source": "plnlp_tpu_torch/csrc/flash_tiles.cu",
+            "replaces": {"fwd": "plnlp_tpu/ops/pallas_attention.py:104",
+                         "dq": "plnlp_tpu/ops/pallas_attention.py:216",
+                         "dkv": "plnlp_tpu/ops/pallas_attention.py:303"}[kind],
+            "launches": 0,
+            "max_abs_err": max(errs[kind], errs_b[kind]),
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,  # no single PyTorch call (phase 16)
+        })
+    del q, k, v, g, stats, bf_fwd, bf_bwd
+    return entries
+
+
+def transformer_bf16_hybrid_phase(args, dev, card, data, small):
+    """Phase 28: TRANSFORMER + MLP + AUC in bf16 (width 256, 2 layers, batch
+    65,536, Adam) for one epoch over the SBM's hybrid operand, then
+    ``Model.test`` and ``Scorer.score``: only the bf16 flash entries launch
+    (K3, K4, K5 2 each a step; K3 2 an encode), parameters and Adam's state
+    stay f32; step, epoch and encode times beside phase 16's f32 ones.  Then
+    the card-against-CPU step in bf16.  Returns the phase's launches."""
+    import torch
+
+    from plnlp_tpu_torch.serve import Scorer
+    from plnlp_tpu_torch.training import Model, ModelConfig
+
+    cfg = ModelConfig(
+        encoder="TRANSFORMER", predictor="MLP", loss_func="AUC", neg_sampler="global",
+        gnn_num_layers=2, emb_hidden_channels=WIDTH, gnn_hidden_channels=WIDTH,
+        mlp_hidden_channels=WIDTH, batch_size=BATCH, num_neg=1, compute_dtype="bfloat16",
+    )
+    hg, sample = data["hg"], data["sample_graph"]
+    n = hg.num_nodes
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 4)
+    total = dict.fromkeys(launch_counts(), 0)
+    model = Model(cfg, n, seed=args.seed, device=dev)
+    opt = model.make_optimizer()
+    steps = math.ceil(len(data["pos"]) / BATCH)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    loss = model.train_epoch(opt, hg, None, None, data["pos"], None, gen, cfg.lr,
+                             sample_graph=sample)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    epoch = launch_counts()
+    require(math.isfinite(loss), f"TRANSFORMER bf16 epoch loss {loss}")
+    require(epoch == _only(epoch, K3bf16=2 * steps, K4bf16=2 * steps, K5bf16=2 * steps),
+            f"TRANSFORMER bf16: launches {epoch} in {steps} steps (want the bf16 K3, K4, K5 2 "
+            "each a step, nothing else)")
+    require(all(p.dtype == torch.float32 for p in model.parameters())
+            and all(v.dtype == torch.float32 for st in opt.state.values() for v in st.values()
+                    if torch.is_tensor(v) and v.is_floating_point()),
+            "TRANSFORMER bf16: a parameter or an optimizer state is not float32")
+    zero_counts()
+    t0 = time.perf_counter()
+    hits = model.test(hg, None, None, data["split"], "hits")
+    torch.cuda.synchronize()
+    test_ms = (time.perf_counter() - t0) * 1e3
+    test = launch_counts()
+    require(test == _only(test, K3bf16=2), f"TRANSFORMER bf16: {test} in a test")
+    require(all(0.0 <= v <= 1.0 for pair in hits.values() for v in pair), f"hits {hits}")
+    zero_counts()
+    pairs = np.random.default_rng(args.seed + 4).integers(0, n, (65_536, 2))
+    scorer = Scorer(model, hg, exclude_graph=sample)
+    scores = scorer.score(pairs)
+    torch.cuda.synchronize()
+    serve = launch_counts()
+    require(serve == _only(serve, K3bf16=2), f"TRANSFORMER bf16: {serve} serving")
+    require(scorer.h.dtype == torch.float32 and scores.dtype == np.float32
+            and np.isfinite(scores).all(), "TRANSFORMER bf16 scores")
+    for counts in (epoch, test, serve):
+        for k, v in counts.items():
+            total[k] += v
+    pos_b = torch.as_tensor(data["pos"][:BATCH], device=dev)
+    neg_b = model.sample_negatives(gen, sample, pos_b)
+    ones = torch.ones(BATCH, device=dev)
+    step_ms = cuda_ms(
+        lambda: model.train_step(opt, hg, None, None, pos_b, neg_b, None, ones, cfg.lr),
+        reps=3, runs=3)
+    encode_ms = cuda_ms(lambda: model.encode(hg), reps=3, runs=3)
+    f32 = data.get("transformer_f32", {})
+    log(f"[transformer-bf16] TRANSFORMER in bf16 over the SBM's hybrid operand (N={n}): one "
+        f"epoch of {steps} steps, mean loss {loss:.6g}, {epoch_s:.3f} s (sampling included), "
+        f"launches {epoch}; train step {step_ms:.3f} ms; encode {encode_ms:.3f} ms; "
+        f"Model.test {test_ms:.1f} ms (host clock), launches {test}, {json.dumps(hits)}; "
+        f"Scorer.score 65536 pairs, launches {serve}, scores f32 and finite; parameters and Adam "
+        f"state f32 [f32, phase 16: step {f32.get('step_ms', float('nan')):.3f} ms, epoch "
+        f"{f32.get('epoch_s', float('nan')):.3f} s, encode {f32.get('encode_ms', float('nan')):.3f} "
+        f"ms]; card {card}")
+    del model, opt, scorer, pos_b, neg_b
+    torch.cuda.empty_cache()
+    # the card against the CPU in bf16, at phase 23's tolerances
+    card_vs_cpu_step(cfg, small, args, dev, **BF16_STEP_TOLS)
+    return total
+
+
+def _grads_of(lp, xr):
+    """x's gradient and each linear's weight and bias gradients together."""
+    import torch
+
+    return [xr.grad.float()] + [torch.cat([lin.weight.grad.reshape(-1), lin.bias.grad])
+                                for lin in lp.values()]
+
+
+def _rel_l2(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30))
+
+
+def top_device_ops(fn, top=10):
+    """(name, launches, total ms) of the device ops of one call of ``fn``
+    under ``torch.profiler``, the largest first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((ev.key, ev.count, dev_us / 1e3))
+    return sorted(rows, key=lambda r: -r[2])[:top]
+
+
+def check_blocked_small(dev):
+    """Phase 29's small graph: ``transformer_conv_blocked`` (width 64) over
+    3,000 nodes with rows of ~10 in-edges, rows of exactly one in-edge
+    (dlogit is exactly 0 on all their slots, which K1 skips mid-run), 300
+    self loops, every edge into rows 0-99 twice (``coalesce=False``: the
+    slot map pairs duplicates k-th with k-th) and isolated rows, through K1
+    on the card against the same layer through K1's plain version on the
+    CPU.  float32: values within rtol = atol = 1e-4, gradients (x; each
+    linear's weight and bias together) within 1e-4 in relative L2; bf16 at
+    BF16_VALUE_TOL (relative to |agg| + |skip|) and BF16_GRAD_TOL.  K1 launches once forward and three
+    times backward, in the entry point of x's dtype."""
+    import torch
+
+    from plnlp_tpu_torch import prepare_graph
+    from plnlp_tpu_torch.models import Encoder
+    from plnlp_tpu_torch.nn import apply_linear
+    from plnlp_tpu_torch.ops.transformer import transformer_conv_blocked
+
+    rng = np.random.default_rng(7)
+    n, d = 3000, 64
+    many = rng.integers(0, 1500, 15_000)
+    single = np.arange(1500, 2500)
+    loops = np.arange(300)
+    dst = np.concatenate([many, single, loops])
+    src = np.concatenate([rng.integers(0, n, len(many) + len(single)), loops])
+    dup = dst < 100
+    src, dst = np.concatenate([src, src[dup]]), np.concatenate([dst, dst[dup]])
+    g, gt = prepare_graph(src, dst, None, num_nodes=n, block=(256, 128), coalesce=False,
+                          couple_transpose=True, device=dev)
+    require(g.num_edges == len(src), "the small graph lost an edge")
+    g_cpu, gt_cpu = g.to("cpu"), gt.to("cpu")
+    lp = Encoder(torch.Generator().manual_seed(3), "TRANSFORMER", d, d, 1).layers[0].to(dev)
+    lp_cpu = copy.deepcopy(lp).to("cpu")
+    x = torch.randn(n, d, generator=torch.Generator().manual_seed(4))
+    gy = torch.randn(n, d, generator=torch.Generator().manual_seed(5))
+    report = []
+    for dtype in (torch.float32, torch.bfloat16):
+        runs = []
+        with torch.no_grad():
+            skip = apply_linear(lp_cpu["lin_skip"], x.to(dtype)).float()
+        for device, graph, graph_t, layer in ((dev, g, gt, lp), ("cpu", g_cpu, gt_cpu, lp_cpu)):
+            layer.zero_grad(set_to_none=True)
+            xr = x.to(device, dtype, copy=True).requires_grad_(True)
+            torch.cuda.synchronize()
+            zero_counts()
+            out = transformer_conv_blocked(layer, graph, graph_t, xr)
+            out.backward(gy.to(device, dtype))
+            torch.cuda.synchronize()
+            if device != "cpu":
+                counts = launch_counts()
+            runs.append([out.detach().float().cpu()] + [a.cpu() for a in _grads_of(layer, xr)])
+        key = "K1" if dtype == torch.float32 else "K1bf16"
+        require(counts == _only(counts, **{key: 4}),
+                f"the small blocked layer in {dtype}: launches {counts} (want {key} 4)")
+        grad_tol = 1e-4 if dtype == torch.float32 else BF16_GRAD_TOL
+        (card_out, *card_g), (cpu_out, *cpu_g) = runs
+        ea, ratio = conv_value_errors(card_out, cpu_out, skip, dtype)
+        require(ratio <= 1.0, f"the small blocked layer in {dtype}: values max_abs {ea:.3e}, "
+                f"max err/tol {ratio:.3f}")
+        rel = max(_rel_l2(a, b) for a, b in zip(card_g, cpu_g))
+        require(rel <= grad_tol, f"the small blocked layer in {dtype}: gradient relative L2 {rel:.3e}")
+        report.append(f"{str(dtype)[6:]} values max_abs {ea:.3e} (max err/tol {ratio:.3f}), "
+                      f"gradients relative L2 max {rel:.3e}, launches {counts}")
+    log(f"[csr-transformer] small graph (N={n}: single-in-edge rows, self loops, duplicate edges, "
+        f"isolated rows; {g.num_edges} edges) through K1 on the card vs its plain version on the "
+        f"CPU: " + "; ".join(report))
+
+
+def csr_transformer_phase(args, dev, card, graph, graph_t, ds, split):
+    """Phase 29: TRANSFORMER over the collab graph's blocked CSR with
+    ``tconv_map`` (N = 235,868, the serving graph of phase 3):
+    ``transformer_conv_blocked`` (width 256) and its x and parameter
+    gradients against autograd through the per-edge path on the card, in
+    f32 (rtol = atol = 1e-4; 1e-4 relative L2) and in bf16 (against the
+    per-edge path in f32 on the same bf16-rounded x; BF16_VALUE_TOL relative
+    to |agg| + |skip|, BF16_GRAD_TOL), K1 1 launch forward and 3 backward; one epoch of
+    TRANSFORMER + MLP + AUC (width 256, 2 layers, batch 65,536, Adam) in
+    each dtype with its step and epoch times (K1 8 a step, 2 a test, in x's
+    dtype only), a per-edge f32 step for comparison; then the small graph
+    (``check_blocked_small``).  Returns the phase's launches."""
+    import torch
+
+    from plnlp_tpu_torch.models import Encoder
+    from plnlp_tpu_torch.models.encoders import _transformer_conv
+    from plnlp_tpu_torch.nn import apply_linear
+    from plnlp_tpu_torch.ops.transformer import transformer_conv_blocked
+    from plnlp_tpu_torch.training import Model, ModelConfig
+
+    require(graph.tconv_map is not None, "the collab graph carries no tconv_map")
+    n = graph.num_nodes
+    total = dict.fromkeys(launch_counts(), 0)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 5)
+    lp = Encoder(torch.Generator().manual_seed(1), "TRANSFORMER", WIDTH, WIDTH, 1).to(dev).layers[0]
+    x = torch.randn(n, WIDTH, device=dev, generator=gen)
+    gy = torch.randn(n, WIDTH, device=dev, generator=gen)
+    for dtype in (torch.float32, torch.bfloat16):
+        runs = []
+        for path in ("blocked", "per-edge"):
+            lp.zero_grad(set_to_none=True)
+            xr = x.to(dtype) if path == "blocked" else x.to(dtype).float()
+            xr = xr.clone().requires_grad_(True)
+            torch.cuda.synchronize()
+            zero_counts()
+            if path == "blocked":
+                out = transformer_conv_blocked(lp, graph, graph_t, xr)
+            else:  # no transpose: the per-edge path
+                out = _transformer_conv(lp, graph, None, xr)
+            (out.float() * gy).sum().backward()
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            if path == "blocked":
+                key = "K1" if dtype == torch.float32 else "K1bf16"
+                require(counts == _only(counts, **{key: 4}),
+                        f"transformer_conv_blocked in {dtype}: launches {counts} (want {key} 1 "
+                        "forward and 3 backward)")
+                for k, v in counts.items():
+                    total[k] += v
+            runs.append([out.detach().float()] + _grads_of(lp, xr))
+            del out, xr
+        (b_out, *b_g), (e_out, *e_g) = runs
+        grad_tol = 1e-4 if dtype == torch.float32 else BF16_GRAD_TOL
+        with torch.no_grad():
+            skip = apply_linear(lp["lin_skip"], x.to(dtype).float())
+        ea, ratio = conv_value_errors(b_out, e_out, skip, dtype)
+        del skip
+        require(ratio <= 1.0, f"transformer_conv_blocked in {dtype} vs the per-edge path: values "
+                f"max_abs {ea:.3e}, max err/tol {ratio:.3f}")
+        rel = {name: _rel_l2(a, b) for name, a, b in zip(["x", *lp.keys()], b_g, e_g)}
+        require(max(rel.values()) <= grad_tol,
+                f"transformer_conv_blocked in {dtype}: gradient relative L2 errors {rel}")
+        log(f"[csr-transformer] transformer_conv_blocked in {str(dtype)[6:]} (N={n}, D={WIDTH}, "
+            f"E={graph.num_edges}) vs autograd through the per-edge path in f32 on the card: values "
+            f"max_abs {ea:.3e}, max err/tol {ratio:.3f}; gradient relative L2 "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()) + f" (tol {grad_tol}); card {card}")
+        del runs, b_g, e_g
+    del x, gy
+    torch.cuda.empty_cache()
+
+    pos = ds["split_edge"]["train"]["edge"]
+    steps = math.ceil(len(pos) / BATCH)
+    for dtype in ("float32", "bfloat16"):
+        cfg = ModelConfig(
+            encoder="TRANSFORMER", predictor="MLP", loss_func="AUC", neg_sampler="global",
+            gnn_num_layers=2, emb_hidden_channels=WIDTH, gnn_hidden_channels=WIDTH,
+            mlp_hidden_channels=WIDTH, batch_size=BATCH, num_neg=1, compute_dtype=dtype,
+        )
+        key = "K1" if dtype == "float32" else "K1bf16"
+        model = Model(cfg, n, seed=args.seed, device=dev)
+        opt = model.make_optimizer()
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        loss = model.train_epoch(opt, graph, graph_t, None, pos, None, gen, cfg.lr,
+                                 sample_graph=graph)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        epoch = launch_counts()
+        require(math.isfinite(loss), f"CSR TRANSFORMER {dtype} epoch loss {loss}")
+        require(epoch == _only(epoch, **{key: 8 * steps}),
+                f"CSR TRANSFORMER {dtype}: launches {epoch} in {steps} steps (want {key} 8 a step)")
+        zero_counts()
+        hits = model.test(graph, graph_t, None, split, "hits")
+        torch.cuda.synchronize()
+        test = launch_counts()
+        require(test == _only(test, **{key: 2}), f"CSR TRANSFORMER {dtype}: {test} in a test")
+        require(all(0.0 <= v <= 1.0 for pair in hits.values() for v in pair), f"hits {hits}")
+        for counts in (epoch, test):
+            for k, v in counts.items():
+                total[k] += v
+        pos_b = torch.as_tensor(pos[:BATCH], device=dev)
+        neg_b = model.sample_negatives(gen, graph, pos_b)
+        ones = torch.ones(BATCH, device=dev)
+        step_ms = cuda_ms(
+            lambda: model.train_step(opt, graph, graph_t, None, pos_b, neg_b, None, ones, cfg.lr),
+            reps=3, runs=3)
+        top = top_device_ops(
+            lambda: model.train_step(opt, graph, graph_t, None, pos_b, neg_b, None, ones, cfg.lr))
+        per_edge = ""
+        if dtype == "float32":
+            plain = dataclasses.replace(graph, tconv_map=None)
+            edge_ms = cuda_ms(
+                lambda: model.train_step(opt, plain, None, None, pos_b, neg_b, None, ones, cfg.lr),
+                reps=2, runs=3)
+            per_edge = f"; the per-edge path's step {edge_ms:.3f} ms"
+        log(f"[csr-transformer] TRANSFORMER in {dtype} over the collab graph's blocked CSR "
+            f"(N={n}): one epoch of {steps} steps, mean loss {loss:.6g}, {epoch_s:.3f} s "
+            f"(sampling included), launches {epoch}; train step {step_ms:.3f} ms{per_edge}; "
+            f"Model.test launches {test}, {json.dumps(hits)}; card {card}")
+        for name, count, ms in top:
+            log(f"[csr-transformer] {dtype} step, top device op: {name[:120]}: {count} launches, "
+                f"{ms:.3f} ms")
+        del model, opt, pos_b, neg_b
+        torch.cuda.empty_cache()
+    check_blocked_small(dev)
+    return total
+
+
+def cli_transformer_path(args, dev, card, tmp):
+    """Phase 30: the CLI in process.  The collab command with ``--encoder
+    TRANSFORMER --adj_backend csr`` for one epoch in f32 (K1 8 a step and 2
+    a test) and one in bf16 (only K1-bf16); phase 19's SBM command in bf16
+    (``auto`` chooses hybrid, only the bf16 K3-K5 launch) and its
+    ``--score_pairs``, equal to the restored Scorer.  Returns the launches."""
+    from plnlp_tpu_torch import cli
+
+    total = dict.fromkeys(launch_counts(), 0)
+    for dtype, key in (("float32", "K1"), ("bfloat16", "K1bf16")):
+        with watch_cli() as a:
+            cli.main(collab_flags(args.seed) + ["--encoder", "TRANSFORMER", "--epochs", "1",
+                                                "--compute_dtype", dtype])
+        steps, tests = a["steps"], a["tests"]
+        require(a["epochs"] == 1 and tests == 1, f"collab TRANSFORMER {dtype}: {a['epochs']} "
+                f"epochs, {tests} tests")
+        require(a["launches"] == _only(a["launches"], **{key: 8 * steps + 2 * tests}),
+                f"collab TRANSFORMER {dtype}: launches {a['launches']} in {steps} steps and "
+                f"{tests} tests (want {key} 8 a step and 2 a test, nothing else)")
+        log(f"[cli-transformer] collab TRANSFORMER (csr, {dtype}, 1 epoch): {steps} steps, "
+            f"launches {a['launches']}; {a['seconds']:.1f} s; card {card}")
+        for k, v in a["launches"].items():
+            total[k] += v
+    ck = os.path.join(tmp, "sbm_bf16_ck")
+    sbm = sbm_flags(args.seed, ck) + ["--compute_dtype", "bfloat16"]
+    with watch_cli() as c:
+        cli.main(sbm)
+    decision = [line for line in c["lines"] if line.startswith("auto backend")]
+    require(len(decision) == 1 and decision[0].endswith("-> hybrid"),
+            f"TRANSFORMER bf16: auto did not choose hybrid: {decision}")
+    steps, tests = c["steps"], c["tests"]
+    require(c["launches"] == _only(c["launches"], K3bf16=2 * steps + 2 * tests,
+                                   K4bf16=2 * steps, K5bf16=2 * steps),
+            f"TRANSFORMER bf16: launches {c['launches']} in {steps} steps and {tests} tests")
+    for k, v in c["launches"].items():
+        total[k] += v
+    pairs = np.random.default_rng(args.seed + 6).integers(0, SBM_NODES, (CLI_PAIRS, 2))
+    pp, so = os.path.join(tmp, "sbm_bf16_pairs.npy"), os.path.join(tmp, "sbm_bf16_scores.npy")
+    np.save(pp, pairs)
+    serve = sbm + ["--adj_backend", "hybrid", "--score_pairs", pp, "--score_out", so]
+    with watch_cli() as s:
+        cli.main(serve)
+    require(s["launches"] == _only(s["launches"], K3bf16=2),
+            f"TRANSFORMER bf16 serving launches {s['launches']}")
+    _, err = check_cli_scores(cli, serve, ck, pairs, np.load(so), "TRANSFORMER bf16", bf16=True)
+    for k, v in s["launches"].items():
+        total[k] += v
+    log(f"[cli-transformer] TRANSFORMER bf16 (auto -> hybrid, 1 epoch): {steps} steps, launches "
+        f"{c['launches']}, {c['seconds']:.1f} s; --score_pairs launches {s['launches']}, equal to "
+        f"the restored Scorer within one bf16 ulp of the largest score (max_abs {err:.3e}); "
+        f"card {card}")
+    return total
+
+
+def transformer_bf16_path(args, dev, card, graph, graph_t, ds, split, data, small, tmp):
+    """Phases 27-30; returns the bf16 flash entries of the kernels line and
+    the launches of the phases' main paths."""
+    import torch
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 7)
+    flash = flash_bf16_phase(data, gen, card)
+    torch.cuda.empty_cache()
+    hybrid = transformer_bf16_hybrid_phase(args, dev, card, data, small)
+    csr = csr_transformer_phase(args, dev, card, graph, graph_t, ds, split)
+    cli = cli_transformer_path(args, dev, card, tmp)
+    total = {k: hybrid[k] + csr[k] + cli[k] for k in hybrid}
+    for entry, key in zip(flash, ("K3bf16", "K4bf16", "K5bf16")):
+        entry["launches"] = total[key]
+    log(f"[transformer-bf16] phases 27-30 in {time.perf_counter() - t0:.1f} s; launches: hybrid "
+        f"{hybrid}, CSR {csr}, CLI {cli}")
+    return flash, total
+
+
+# ---------------------------------------------------------------------------
 # The training CLI
 # ---------------------------------------------------------------------------
 
@@ -1383,11 +1932,14 @@ def _only(launches, **want):
     return {k: want.get(k, 0) for k in launches}
 
 
-def check_cli_scores(cli, argv, ckpt, pairs, scores, label):
+def check_cli_scores(cli, argv, ckpt, pairs, scores, label, bf16=False):
     """``scores`` (from ``--score_pairs``) against the Scorer restored from
     ``ckpt`` over the operand the serving run builds, on the pairs mapped
     through the trained run's relabel; the same computation, so within
-    1e-6."""
+    1e-6.  With ``bf16`` within 1e-6 + 2**-7 of the largest score: the
+    hybrid residual's f32 ``index_add_`` adds in arrival order on the card,
+    and a last-bit difference can move one of the encode's bf16 roundings
+    by an ulp (1.2e-5 apart, measured)."""
     from plnlp_tpu_torch.serve import Scorer
 
     exp = cli.prepare_experiment(cli.argument(argv), log=lambda *_: None, serving=True)
@@ -1396,8 +1948,13 @@ def check_cli_scores(cli, argv, ckpt, pairs, scores, label):
     ).score(pairs if exp["node_relabel"] is None else exp["node_relabel"][pairs])
     err = float(np.abs(scores - want).max())
     require(scores.shape == (len(pairs),) and np.isfinite(scores).all(), f"{label} scores")
-    require(np.allclose(scores, want, rtol=1e-6, atol=1e-6),
-            f"{label}: --score_pairs vs the restored Scorer max_abs {err:.3e}")
+    if bf16:
+        tol = 1e-6 + BF16_RTOL * float(np.abs(want).max())
+        require(err <= tol, f"{label}: --score_pairs vs the restored Scorer max_abs {err:.3e} "
+                f"(tol {tol:.3e})")
+    else:
+        require(np.allclose(scores, want, rtol=1e-6, atol=1e-6),
+                f"{label}: --score_pairs vs the restored Scorer max_abs {err:.3e}")
     return exp["node_relabel"], err
 
 
@@ -1421,6 +1978,17 @@ def ddi_flags(seed: int) -> list:
         "--emb_hidden_channels", "512", "--gnn_hidden_channels", "512",
         "--mlp_hidden_channels", "512", "--num_neg", "3", "--dropout", "0.3",
         "--epochs", "1", "--eval_steps", "1", "--runs", "1", "--seed", str(seed),
+    ]
+
+
+def sbm_flags(seed: int, ckpt: str) -> list:
+    """TRANSFORMER on a 200-community SBM for one epoch, through ``auto``,
+    with a checkpoint in ``ckpt``."""
+    return [
+        "--data_name", f"synthetic:hits-sbm:num_nodes={SBM_NODES},num_edges={SBM_EDGES},"
+        f"num_communities={SBM_COMMUNITIES}",
+        "--encoder", "TRANSFORMER", "--epochs", "1", "--eval_steps", "1", "--runs", "1",
+        "--checkpoint_dir", ckpt, "--checkpoint_every", "1", "--seed", str(seed),
     ]
 
 
@@ -1531,12 +2099,7 @@ def cli_path(args, dev, card, tmp):
 
     # 19. TRANSFORMER through auto onto the hybrid operand ------------------
     ck_c = os.path.join(tmp, "sbm_ck")
-    sbm = [
-        "--data_name", f"synthetic:hits-sbm:num_nodes={SBM_NODES},num_edges={SBM_EDGES},"
-        f"num_communities={SBM_COMMUNITIES}",
-        "--encoder", "TRANSFORMER", "--epochs", "1", "--eval_steps", "1", "--runs", "1",
-        "--checkpoint_dir", ck_c, "--checkpoint_every", "1", "--seed", str(args.seed),
-    ]
+    sbm = sbm_flags(args.seed, ck_c)
     with watch_cli() as c:
         cli.main(sbm)
     decision = [line for line in c["lines"] if line.startswith("auto backend")]
@@ -1612,8 +2175,11 @@ def main() -> int:
     t0 = time.perf_counter()
     ds = make_synthetic_dataset("hits", num_nodes=N_NODES, num_edges=N_EDGES, seed=args.seed)
     src, dst = ds["edge_index"]
+    # with the slot map TRANSFORMER's blocked backward needs (phase 29);
+    # SAGE ignores it
     graph, graph_t = prepare_graph(
-        src, dst, None, num_nodes=N_NODES, symmetrize=True, block=BLOCK, device=dev
+        src, dst, None, num_nodes=N_NODES, symmetrize=True, block=BLOCK, device=dev,
+        couple_transpose=True,
     )
     torch.cuda.synchronize()
     n, e = graph.num_nodes, graph.num_edges
@@ -1796,22 +2362,26 @@ def main() -> int:
         cli_launches = cli_path(args, dev, card, tmp)
         torch.cuda.empty_cache()
         bf16_kernels = bf16_path(args, dev, card, graph, graph_t, ds, split, data, small, tmp)
+        torch.cuda.empty_cache()
+        flash_bf16, tf_launches = transformer_bf16_path(args, dev, card, graph, graph_t, ds,
+                                                        split, data, small, tmp)
     for entry, kernel in zip(train_kernels, ("K2", "K3", "K4", "K5")):
         entry["launches"] += cli_launches[kernel]
+    bf16_kernels[0]["launches"] += tf_launches["K1bf16"]
 
     kernels = [{
         "name": "scatter_matmul",
         "route": "cuda",
         "source": "plnlp_tpu_torch/csrc/scatter_matmul.cu",
         "replaces": "plnlp_tpu/ops/pallas_spmm.py:51",
-        "launches": launches + k1_train_launches + cli_launches["K1"],
+        "launches": launches + k1_train_launches + cli_launches["K1"] + tf_launches["K1"],
         "max_abs_err": max_abs,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
-    }, *train_kernels, *bf16_kernels]
+    }, *train_kernels, *bf16_kernels, *flash_bf16]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -150,8 +150,7 @@ def argument(argv=None):
         default="float32",
         choices=["float32", "bfloat16"],
         help="encoder/predictor compute dtype (parameters and optimizer stay "
-        "float32); TRANSFORMER with bfloat16 is not ported yet (ROADMAP queue 1 "
-        "item 12)",
+        "float32)",
     )
     parser.add_argument(
         "--remat", type=str2bool, nargs="?", const=True, default=False,
@@ -380,8 +379,7 @@ def _device(args, device):
 
 def _check_ported(args) -> None:
     """Flag values that select code the port does not have yet raise, so
-    nothing else runs in their place (TRANSFORMER with bfloat16 raises in
-    ``Model``)."""
+    nothing else runs in their place: only the multi-device flags."""
     if args.num_shards > 1 or args.mesh_data > 1:
         raise NotImplementedError(
             f"--num_shards {args.num_shards} / --mesh_data {args.mesh_data}: the "
@@ -504,7 +502,12 @@ def prepare_experiment(args, log=print, serving=False, device=None):
             + ")"
         )
     else:
-        graph, graph_t = prepare_graph(*adj, num_nodes=num_nodes, block=block, device=dev)
+        # the blocked TransformerConv's backward needs the forward <->
+        # transpose slot pairing (ops/transformer.py)
+        graph, graph_t = prepare_graph(
+            *adj, num_nodes=num_nodes, block=block, device=dev,
+            couple_transpose=args.encoder.upper() == "TRANSFORMER",
+        )
     if (use_dense or backend == "hybrid") and not serving:
         # the CSR twin for the negative sampler's exclusion and the walks
         sample_graph, _ = prepare_graph(*adj, num_nodes=num_nodes, block=None, device=dev)

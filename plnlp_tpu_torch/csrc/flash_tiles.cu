@@ -16,16 +16,33 @@
 //      destination): dk_j = sum_i ds_ij q_i, dv_j = sum_i a_ij g_i.
 //
 // Layout.  Tiles are sorted by row tile and the tiles of row tile rt lie at
-// [tile_rowptr[rt], tile_rowptr[rt+1]); vals is (nt, T, T) int8 or f32,
-// 16-byte aligned, and only its zero pattern is read.  q, k, v, g are
-// (rows, d) f32 and stats is (rows, 3) f32, all 16-byte aligned; rows past
-// `rows` read as zero features and as stats (0, 1, 0).  Any d and any T
-// that is a multiple of 16 are taken (the TPU path pads d to 128 lanes).
+// [tile_rowptr[rt], tile_rowptr[rt+1]); vals is (nt, T, T) int8, f32 or
+// bf16, 16-byte aligned, and only its zero pattern is read.  q, k, v, g are
+// (rows, d) f32 (plnlp_flash_tiles_{fwd,dq,dkv}) or bf16 (the _bf16 entry
+// points), stats is (rows, 3) f32, all 16-byte aligned; rows past `rows`
+// read as zero features and as stats (0, 1, 0).  The outputs are f32 in
+// both.  Any d and any T that is a multiple of 16 are taken (the TPU path
+// pads d to 128 lanes).
+//
+// bf16 features (the TPU kernels with bf16 q/k/v/g): the scores and g . v
+// are f32 sums of bf16 products (exact in f32), the softmax terms are f32,
+// and the weight of each second product is rounded to bf16 first, as the
+// TPU kernels cast it to the features' dtype: K3 num += bf16(p) v_j while
+// den sums the f32 p; K4 dq += bf16(ds) k_j; K5 dk += bf16(ds) q_i and
+// dv += bf16(a) g_i.  The feature type F sets a lane's columns: 16 bytes
+// of F a load (W = 4 f32 or 8 bf16 columns: c0 + 32 W h + W lane), and the
+// f32 outputs are stored in the same columns, so the f32 instantiations
+// keep their layout and their bits.  A K3 row longer than one 32-entry
+// chunk rounds p against its running max and rescales the sums, so its
+// terms may differ from the plain version's (one bf16 rounding against the
+// final max) by one bf16 ulp.
 //
 // Bound on the H100 at the collab SBM shape (n_pad = 236,032 rows, d = 256,
 // T = 256, nt = 2,658 int8 tiles holding 2,182,538 edges, 1.25% full).
 // Bytes (vals once, each (n_pad, d) array once, the stats): K3 1.144 GB,
-// K4 1.386 GB, K5 1.627 GB, so 0.34 / 0.41 / 0.49 ms at 3.35 TB/s.
+// K4 1.386 GB, K5 1.627 GB, so 0.34 / 0.41 / 0.49 ms at 3.35 TB/s.  With
+// bf16 q/k/v/g (2 bytes; the outputs and stats still f32) 0.78 / 0.90 /
+// 1.14 GB, 0.23 / 0.27 / 0.34 ms.
 // Operations the nonzeros need: 4, 6 and 8 d FLOP an edge, 2.2 / 3.4 /
 // 4.5 GFLOP, under 0.07 ms at the 67 TFLOP/s f32 peak.  So each is bound by
 // bytes.
@@ -101,8 +118,14 @@
 // 700.00 W): K3 1.088 ms, K4 0.733 ms and K5 0.974 ms, 3.2x, 1.8x and 2.0x
 // their byte bounds, gathering at 4.1, 6.1 and 4.6 TB/s, so mostly from L2
 // (K3's scores read k_j a row a lane, 16 bytes from each of 32 rows a load);
-// the dense designs before them took 9.597, 14.159 and 22.052 ms.
+// the dense designs before them took 9.597, 14.159 and 22.052 ms.  With
+// bf16 features (chip_smoke.py, the same card and shape) the bf16 entry
+// points take K3 0.885, K4 0.689 and K5 0.919 ms against 1.138, 0.742 and
+// 0.971 ms for the f32 ones in the same run: halving the gather's bytes
+// buys 5-22%, so per-entry work (the butterflies and expf of K4 and K5,
+// K3's lane-per-entry scores), not the gather, sets their time.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -112,6 +135,8 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr unsigned kFull = 0xffffffffu;
+
+typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -168,40 +193,87 @@ __device__ __forceinline__ void load8(const int8_t* p, float (&v)[8]) {
   }
 }
 
-// A lane's 8 columns of the 256-column slice that starts at c0: with VEC
-// (d % 4 == 0, 16-byte aligned rows) two float4 at c0 + 4 lane and
-// c0 + 128 + 4 lane; otherwise 8 scalars at c0 + lane + 32 j.  Columns at
-// or past d read 0 and are not written.
-template <bool VEC>
-__device__ __forceinline__ void load_cols(const float* row, int c0, int lane, int d,
+// the 8 bf16 packed in 4 words, low half first
+__device__ __forceinline__ void unpack8(const uint4 raw, float (&v)[8], int off = 0) {
+  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[off + 2 * k] = __uint_as_float(w[k] << 16);
+    v[off + 2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
+  unpack8(__ldg(reinterpret_cast<const uint4*>(p)), v);
+}
+
+__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load1(const bf16* p) {
+  return __uint_as_float((unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+
+// 16 bytes of features at p (16-byte aligned) into v[off .. off + W)
+__device__ __forceinline__ void load_run(const float* p, float (&v)[8], int off) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  v[off] = a.x; v[off + 1] = a.y; v[off + 2] = a.z; v[off + 3] = a.w;
+}
+__device__ __forceinline__ void load_run(const bf16* p, float (&v)[8], int off) {
+  unpack8(__ldg(reinterpret_cast<const uint4*>(p)), v, off);
+}
+
+// A product's weight as the TPU kernel casts it: rounded to the features'
+// type F (round to nearest even; a no-op for f32).
+template <typename F>
+__device__ __forceinline__ float round_to(float x) {
+  if constexpr (sizeof(F) == 2) return __bfloat162float(__float2bfloat16(x));
+  return x;
+}
+
+// A lane's 8 columns of the 256-column slice that starts at c0, for
+// features of type F (W = 16 / sizeof(F) columns a 16-byte load): with VEC
+// (d % W == 0, 16-byte aligned rows) 8 / W runs of W at c0 + 32 W h + W lane
+// (f32: two float4 at c0 + 4 lane and c0 + 128 + 4 lane; bf16: one uint4 at
+// c0 + 8 lane); otherwise 8 scalars at c0 + lane + 32 j.  Columns at or past
+// d read 0 and are not written.
+template <bool VEC, typename F>
+__device__ __forceinline__ void load_cols(const F* row, int c0, int lane, int d,
                                           float (&v)[8]) {
+  constexpr int W = 16 / sizeof(F);
   if (VEC) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = c0 + 128 * h + 4 * lane;
-      const float4 a = c < d ? __ldg(reinterpret_cast<const float4*>(row + c))
-                             : make_float4(0.f, 0.f, 0.f, 0.f);
-      v[4 * h] = a.x; v[4 * h + 1] = a.y; v[4 * h + 2] = a.z; v[4 * h + 3] = a.w;
+    for (int h = 0; h < 8 / W; ++h) {
+      const int c = c0 + 32 * W * h + W * lane;
+      if (c < d) {
+        load_run(row + c, v, W * h);
+      } else {
+#pragma unroll
+        for (int i = 0; i < W; ++i) v[W * h + i] = 0.f;
+      }
     }
   } else {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int c = c0 + lane + 32 * j;
-      v[j] = c < d ? __ldg(row + c) : 0.f;
+      v[j] = c < d ? load1(row + c) : 0.f;
     }
   }
 }
 
-template <bool VEC>
+// The f32 outputs, in the columns load_cols<VEC, F> gives a lane.
+template <bool VEC, typename F>
 __device__ __forceinline__ void store_cols(float* row, int c0, int lane, int d,
                                            const float (&v)[8]) {
+  constexpr int W = 16 / sizeof(F);
   if (VEC) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = c0 + 128 * h + 4 * lane;
-      if (c < d)
-        *reinterpret_cast<float4*>(row + c) =
-            make_float4(v[4 * h], v[4 * h + 1], v[4 * h + 2], v[4 * h + 3]);
+    for (int h = 0; h < 8 / W; ++h) {
+      const int c = c0 + 32 * W * h + W * lane;
+      if (c < d) {
+#pragma unroll
+        for (int i = 0; i < W; i += 4)
+          *reinterpret_cast<float4*>(row + c + i) =
+              make_float4(v[W * h + i], v[W * h + i + 1], v[W * h + i + 2], v[W * h + i + 3]);
+      }
     }
   } else {
 #pragma unroll
@@ -285,9 +357,9 @@ __device__ __forceinline__ void scan_row(const V* __restrict__ vals,
 // K3: forward partials
 // ---------------------------------------------------------------------------
 
-// The dot product of two rows of d floats as one sequential chain of fmas
+// The dot product of two rows of d features as one sequential chain of fmas
 // in column order from 0, the order the plain version's bmm sums in: the
-// scores, and so m, come out with its bits.
+// scores, and so m, come out with its bits (bf16 products are exact in f32).
 template <bool VEC>
 __device__ __forceinline__ float dot_seq(const float* a, const float* b, int d) {
   float s = 0.f;
@@ -308,19 +380,39 @@ __device__ __forceinline__ float dot_seq(const float* a, const float* b, int d) 
   return s;
 }
 
+template <bool VEC>
+__device__ __forceinline__ float dot_seq(const bf16* a, const bf16* b, int d) {
+  float s = 0.f;
+  if (VEC) {
+#pragma unroll 2
+    for (int c = 0; c < d; c += 8) {
+      float x[8], y[8];
+      load8(a + c, x);
+      load8(b + c, y);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s = fmaf(x[j], y[j], s);
+    }
+  } else {
+#pragma unroll 4
+    for (int c = 0; c < d; ++c) s = fmaf(load1(a + c), load1(b + c), s);
+  }
+  return s;
+}
+
 // A warp's destination row while it drains its list: q_i at full width,
 // the slice's num columns (8 a lane), and the running max and sum.
+template <typename F>
 struct FwdRow {
-  const float* q_row;
+  const F* q_row;
   float num[8];
   float m, den;
 };
 
 // Adds the list's n entries to the row, 32 at a time (the header's design).
-template <bool VEC>
-__device__ __forceinline__ void drain_fwd(const int* lst, int n, FwdRow& w,
-                                          const float* __restrict__ k,
-                                          const float* __restrict__ v, int rows, int c0,
+template <bool VEC, typename F>
+__device__ __forceinline__ void drain_fwd(const int* lst, int n, FwdRow<F>& w,
+                                          const F* __restrict__ k,
+                                          const F* __restrict__ v, int rows, int c0,
                                           int lane, int d, float scale) {
   __syncwarp();
   for (int b = 0; b < n; b += 32) {
@@ -356,19 +448,20 @@ __device__ __forceinline__ void drain_fwd(const int* lst, int n, FwdRow& w,
       for (int uu = 0; uu < kUnrollFwd; ++uu) {
         if (u + uu >= n_b) break;  // warp-uniform
         w.den += p[uu];
+        const float pv = round_to<F>(p[uu]);
 #pragma unroll
-        for (int c = 0; c < 8; ++c) w.num[c] = fmaf(p[uu], x[uu][c], w.num[c]);
+        for (int c = 0; c < 8; ++c) w.num[c] = fmaf(pv, x[uu][c], w.num[c]);
       }
     }
   }
   __syncwarp();
 }
 
-template <typename V, bool VEC>
+template <typename V, typename F, bool VEC>
 __global__ void __launch_bounds__(kThreads, kMinBlocksFwd)
 flash_fwd_kernel(const V* __restrict__ vals, const int* __restrict__ tile_col,
-                 const int* __restrict__ tile_rowptr, const float* __restrict__ q,
-                 const float* __restrict__ k, const float* __restrict__ v,
+                 const int* __restrict__ tile_rowptr, const F* __restrict__ q,
+                 const F* __restrict__ k, const F* __restrict__ v,
                  float* __restrict__ num, float* __restrict__ ml, int tile, int rows, int d,
                  float scale) {
   __shared__ int lst_all[kWarps][kCap];
@@ -386,7 +479,7 @@ flash_fwd_kernel(const V* __restrict__ vals, const int* __restrict__ tile_col,
     const int r = slice * kRowsPerBlock + kk * kWarps + warp;
     const int64_t grow = (int64_t)rt * tile + r;
     if (r >= tile || grow >= rows) break;  // warp-uniform
-    FwdRow w;
+    FwdRow<F> w;
     w.q_row = q + grow * d;
     w.m = -INFINITY;
     w.den = 0.f;
@@ -395,7 +488,7 @@ flash_fwd_kernel(const V* __restrict__ vals, const int* __restrict__ tile_col,
     scan_row<true>(vals, tile_col, t_begin, t_end, r, tile, rows, lst, [&](int n) {
       drain_fwd<VEC>(lst, n, w, k, v, rows, c0, lane, d, scale);
     });
-    store_cols<VEC>(num + grow * d, c0, lane, d, w.num);
+    store_cols<VEC, F>(num + grow * d, c0, lane, d, w.num);
     if (blockIdx.z == 0 && lane == 0) {
       ml[grow * 2] = w.m;
       ml[grow * 2 + 1] = w.den;
@@ -411,9 +504,10 @@ flash_fwd_kernel(const V* __restrict__ vals, const int* __restrict__ tile_col,
 // own rows are q_i and g_i, with their stats; the gathered rows are k_j and
 // v_j.  K5: the own rows are k_j and v_j; the gathered rows q_i and g_i come
 // with the stats of row i.
+template <typename F>
 struct BwdRow {
-  const float* own_a;  // the own rows at full width (read in chunks when WIDE)
-  const float* own_b;
+  const F* own_a;  // the own rows at full width (read in chunks when WIDE)
+  const F* own_b;
   float oa[8], ob[8];  // their 8 columns a lane (d <= 256)
   float m, den, delta;  // K4: the own row's stats
   float acc_a[8], acc_b[8];  // dq, or dk and dv: the slice's 8 columns a lane
@@ -421,18 +515,18 @@ struct BwdRow {
 
 // Adds the terms of the list's n entries to the row's registers, in list
 // order.  gat_a / gat_b are the gathered arrays (K4: k, v; K5: q, g).
-template <bool VEC, bool WIDE, bool DKV>
-__device__ __forceinline__ void drain_bwd(const int* lst, int n, BwdRow& w,
-                                          const float* __restrict__ gat_a,
-                                          const float* __restrict__ gat_b,
+template <typename F, bool VEC, bool WIDE, bool DKV>
+__device__ __forceinline__ void drain_bwd(const int* lst, int n, BwdRow<F>& w,
+                                          const F* __restrict__ gat_a,
+                                          const F* __restrict__ gat_b,
                                           const float* __restrict__ stats, int c0, int lane,
                                           int d, float scale) {
   __syncwarp();
   for (int b = 0; b < n; b += kUnroll) {
     float xa[kUnroll][8], xb[kUnroll][8], s[kUnroll], dav[kUnroll];
     float m[kUnroll], den[kUnroll], delta[kUnroll];
-    const float* ra[kUnroll];
-    const float* rb[kUnroll];
+    const F* ra[kUnroll];
+    const F* rb[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const bool live = b + u < n;  // warp-uniform
@@ -495,11 +589,12 @@ __device__ __forceinline__ void drain_bwd(const int* lst, int n, BwdRow& w,
     for (int u = 0; u < kUnroll; ++u) {
       if (b + u >= n) break;  // warp-uniform
       const float a = expf(s[u] * scale - m[u]) / den[u];
-      const float ds = a * (dav[u] - delta[u]) * scale;
+      const float ds = round_to<F>(a * (dav[u] - delta[u]) * scale);
+      const float ar = round_to<F>(a);
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         w.acc_a[c] = fmaf(ds, xa[u][c], w.acc_a[c]);
-        if (DKV) w.acc_b[c] = fmaf(a, xb[u][c], w.acc_b[c]);
+        if (DKV) w.acc_b[c] = fmaf(ar, xb[u][c], w.acc_b[c]);
       }
     }
   }
@@ -509,12 +604,12 @@ __device__ __forceinline__ void drain_bwd(const int* lst, int n, BwdRow& w,
 // K4 (DKV false): own = (q, g), gathered = (k, v), out_a = dq.
 // K5 (DKV true):  own = (k, v), gathered = (q, g), out_a = dk, out_b = dv;
 // vals, tile_col and tile_rowptr are then the transposed set's.
-template <typename V, bool VEC, bool WIDE, bool DKV>
+template <typename V, typename F, bool VEC, bool WIDE, bool DKV>
 __global__ void __launch_bounds__(kThreads, DKV ? kMinBlocksDkv : kMinBlocksDq)
 flash_bwd_kernel(const V* __restrict__ vals, const int* __restrict__ tile_col,
-                 const int* __restrict__ tile_rowptr, const float* __restrict__ own_a,
-                 const float* __restrict__ own_b, const float* __restrict__ gat_a,
-                 const float* __restrict__ gat_b, const float* __restrict__ stats,
+                 const int* __restrict__ tile_rowptr, const F* __restrict__ own_a,
+                 const F* __restrict__ own_b, const F* __restrict__ gat_a,
+                 const F* __restrict__ gat_b, const float* __restrict__ stats,
                  float* __restrict__ out_a, float* __restrict__ out_b, int tile, int rows,
                  int d, float scale) {
   __shared__ int lst_all[kWarps][kCap];
@@ -536,7 +631,7 @@ flash_bwd_kernel(const V* __restrict__ vals, const int* __restrict__ tile_col,
     const int r = slice * kRowsPerBlock + k * kWarps + warp;
     const int64_t grow = (int64_t)rt * tile + r;
     if (r >= tile || grow >= rows) break;  // warp-uniform
-    BwdRow w;
+    BwdRow<F> w;
     w.own_a = own_a + grow * d;
     w.own_b = own_b + grow * d;
 #pragma unroll
@@ -549,10 +644,10 @@ flash_bwd_kernel(const V* __restrict__ vals, const int* __restrict__ tile_col,
     w.den = DKV ? 1.f : __ldg(stats + grow * 3 + 1);
     w.delta = DKV ? 0.f : __ldg(stats + grow * 3 + 2);
     scan_row<false>(vals, tile_col, t_begin, t_end, r, tile, rows, lst, [&](int n) {
-      drain_bwd<VEC, WIDE, DKV>(lst, n, w, gat_a, gat_b, stats, c0, lane, d, scale);
+      drain_bwd<F, VEC, WIDE, DKV>(lst, n, w, gat_a, gat_b, stats, c0, lane, d, scale);
     });
-    store_cols<VEC>(out_a + grow * d, c0, lane, d, w.acc_a);
-    if (DKV) store_cols<VEC>(out_b + grow * d, c0, lane, d, w.acc_b);
+    store_cols<VEC, F>(out_a + grow * d, c0, lane, d, w.acc_a);
+    if (DKV) store_cols<VEC, F>(out_b + grow * d, c0, lane, d, w.acc_b);
   }
 }
 
@@ -563,86 +658,150 @@ dim3 grid_of(Kind kind, int nr, int tile, int d) {
               (d + kSlice - 1) / kSlice);
 }
 
-// Calls F<V, VEC, WIDE>() for the store type, the 16-byte path (d % 4 == 0)
-// and the wide path (d > 256).
-template <template <typename, bool, bool> class F, typename... Args>
-void dispatch(int vals_int8, int d, Args... args) {
-  const bool vec = d % 4 == 0, wide = d > kSlice;
-  if (vals_int8) {
-    if (vec) { if (wide) F<int8_t, true, true>::run(args...); else F<int8_t, true, false>::run(args...); }
-    else { if (wide) F<int8_t, false, true>::run(args...); else F<int8_t, false, false>::run(args...); }
+// Calls L<V, F, VEC, WIDE>::run(args...) for the store type V (vals_kind
+// 0 f32, 1 int8, 2 bf16), the 16-byte path (d a multiple of W = 16 /
+// sizeof(F)) and the wide path (d > 256).
+template <template <typename, typename, bool, bool> class L, typename V, typename F,
+          typename... Args>
+void by_shape(bool vec, bool wide, Args... args) {
+  if (vec) {
+    if (wide) L<V, F, true, true>::run(args...); else L<V, F, true, false>::run(args...);
   } else {
-    if (vec) { if (wide) F<float, true, true>::run(args...); else F<float, true, false>::run(args...); }
-    else { if (wide) F<float, false, true>::run(args...); else F<float, false, false>::run(args...); }
+    if (wide) L<V, F, false, true>::run(args...); else L<V, F, false, false>::run(args...);
   }
 }
 
+template <template <typename, typename, bool, bool> class L, typename F, typename... Args>
+void dispatch(int vals_kind, int d, Args... args) {
+  const bool vec = d % (16 / (int)sizeof(F)) == 0, wide = d > kSlice;
+  if (vals_kind == 1) by_shape<L, int8_t, F>(vec, wide, args...);
+  else if (vals_kind == 2) by_shape<L, bf16, F>(vec, wide, args...);
+  else by_shape<L, float, F>(vec, wide, args...);
+}
+
 // K3 takes no wide path: a lane's score runs over the full d in any slice.
-template <typename V, bool VEC, bool WIDE>
+template <typename V, typename F, bool VEC, bool WIDE>
 struct LaunchFwd {
-  static void run(const void* vals, const int* tc, const int* tp, const float* q,
-                  const float* k, const float* v, float* num, float* ml, int nr, int tile,
+  static void run(const void* vals, const int* tc, const int* tp, const void* q,
+                  const void* k, const void* v, float* num, float* ml, int nr, int tile,
                   int rows, int d, float scale, cudaStream_t stream) {
-    flash_fwd_kernel<V, VEC><<<grid_of(kFwd, nr, tile, d), kThreads, 0, stream>>>(
-        static_cast<const V*>(vals), tc, tp, q, k, v, num, ml, tile, rows, d, scale);
+    flash_fwd_kernel<V, F, VEC><<<grid_of(kFwd, nr, tile, d), kThreads, 0, stream>>>(
+        static_cast<const V*>(vals), tc, tp, static_cast<const F*>(q),
+        static_cast<const F*>(k), static_cast<const F*>(v), num, ml, tile, rows, d, scale);
   }
 };
 
 template <bool DKV>
 struct LaunchBwd {
-  template <typename V, bool VEC, bool WIDE>
+  template <typename V, typename F, bool VEC, bool WIDE>
   struct Of {
-    static void run(const void* vals, const int* tc, const int* tp, const float* own_a,
-                    const float* own_b, const float* gat_a, const float* gat_b,
+    static void run(const void* vals, const int* tc, const int* tp, const void* own_a,
+                    const void* own_b, const void* gat_a, const void* gat_b,
                     const float* stats, float* out_a, float* out_b, int nr, int tile,
                     int rows, int d, float scale, cudaStream_t stream) {
-      flash_bwd_kernel<V, VEC, WIDE, DKV>
+      flash_bwd_kernel<V, F, VEC, WIDE, DKV>
           <<<grid_of(DKV ? kDkv : kDq, nr, tile, d), kThreads, 0, stream>>>(
-              static_cast<const V*>(vals), tc, tp, own_a, own_b, gat_a, gat_b, stats, out_a,
-              out_b, tile, rows, d, scale);
+              static_cast<const V*>(vals), tc, tp, static_cast<const F*>(own_a),
+              static_cast<const F*>(own_b), static_cast<const F*>(gat_a),
+              static_cast<const F*>(gat_b), stats, out_a, out_b, tile, rows, d, scale);
     }
   };
 };
 
+template <typename F>
+int launch_fwd(const void* vals, int vals_kind, const int* tile_col, const int* tile_rowptr,
+               const void* q, const void* k, const void* v, float* num, float* ml,
+               int n_rowtiles, int tile, int rows, int d, float scale, cudaStream_t stream) {
+  dispatch<LaunchFwd, F>(vals_kind, d, vals, tile_col, tile_rowptr, q, k, v, num, ml,
+                         n_rowtiles, tile, rows, d, scale, stream);
+  return (int)cudaGetLastError();
+}
+
+template <typename F>
+int launch_dq(const void* vals, int vals_kind, const int* tile_col, const int* tile_rowptr,
+              const void* q, const void* k, const void* v, const void* g, const float* stats,
+              float* out, int n_rowtiles, int tile, int rows, int d, float scale,
+              cudaStream_t stream) {
+  dispatch<LaunchBwd<false>::Of, F>(vals_kind, d, vals, tile_col, tile_rowptr, q, g, k, v,
+                                    stats, out, static_cast<float*>(nullptr), n_rowtiles, tile,
+                                    rows, d, scale, stream);
+  return (int)cudaGetLastError();
+}
+
+template <typename F>
+int launch_dkv(const void* vals_t, int vals_kind, const int* tile_col_t,
+               const int* tile_rowptr_t, const void* q, const void* k, const void* v,
+               const void* g, const float* stats, float* dk, float* dv, int n_rowtiles,
+               int tile, int rows, int d, float scale, cudaStream_t stream) {
+  dispatch<LaunchBwd<true>::Of, F>(vals_kind, d, vals_t, tile_col_t, tile_rowptr_t, k, v, q,
+                                   g, stats, dk, dv, n_rowtiles, tile, rows, d, scale, stream);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Each entry point launches on `stream` and returns cudaGetLastError()
-// (0 = launched).  The caller guarantees: vals (nt, tile, tile) int8
-// (vals_int8 != 0) or f32, contiguous and 16-byte aligned; tile a multiple
-// of 16; tile_col (nt) and tile_rowptr (n_rowtiles + 1) int32; q, k, v, g
-// and the outputs (rows, d) f32, contiguous and 16-byte aligned, and stats
+// (0 = launched).  The caller guarantees: vals (nt, tile, tile) f32
+// (vals_kind 0), int8 (1) or bf16 (2), contiguous and 16-byte aligned;
+// tile a multiple of 16; tile_col (nt) and tile_rowptr (n_rowtiles + 1)
+// int32; q, k, v, g (rows, d) f32 (the f32 entry points) or bf16 (_bf16),
+// the outputs (rows, d) f32, all contiguous and 16-byte aligned, and stats
 // (rows, 3) f32, contiguous; 0 < rows <= n_rowtiles * tile; d > 0.
 
-extern "C" int plnlp_flash_tiles_fwd(const void* vals, int vals_int8, const int* tile_col,
+extern "C" int plnlp_flash_tiles_fwd(const void* vals, int vals_kind, const int* tile_col,
                                      const int* tile_rowptr, const float* q, const float* k,
                                      const float* v, float* num, float* ml, int n_rowtiles,
                                      int tile, int rows, int d, float scale,
                                      cudaStream_t stream) {
-  dispatch<LaunchFwd>(vals_int8, d, vals, tile_col, tile_rowptr, q, k, v, num, ml,
-                      n_rowtiles, tile, rows, d, scale, stream);
-  return (int)cudaGetLastError();
+  return launch_fwd<float>(vals, vals_kind, tile_col, tile_rowptr, q, k, v, num, ml,
+                           n_rowtiles, tile, rows, d, scale, stream);
 }
 
-extern "C" int plnlp_flash_tiles_dq(const void* vals, int vals_int8, const int* tile_col,
+extern "C" int plnlp_flash_tiles_fwd_bf16(const void* vals, int vals_kind,
+                                          const int* tile_col, const int* tile_rowptr,
+                                          const void* q, const void* k, const void* v,
+                                          float* num, float* ml, int n_rowtiles, int tile,
+                                          int rows, int d, float scale, cudaStream_t stream) {
+  return launch_fwd<bf16>(vals, vals_kind, tile_col, tile_rowptr, q, k, v, num, ml,
+                          n_rowtiles, tile, rows, d, scale, stream);
+}
+
+extern "C" int plnlp_flash_tiles_dq(const void* vals, int vals_kind, const int* tile_col,
                                     const int* tile_rowptr, const float* q, const float* k,
                                     const float* v, const float* g, const float* stats,
                                     float* out, int n_rowtiles, int tile, int rows, int d,
                                     float scale, cudaStream_t stream) {
-  dispatch<LaunchBwd<false>::Of>(vals_int8, d, vals, tile_col, tile_rowptr, q, g, k, v,
-                                 stats, out, static_cast<float*>(nullptr), n_rowtiles, tile,
-                                 rows, d, scale, stream);
-  return (int)cudaGetLastError();
+  return launch_dq<float>(vals, vals_kind, tile_col, tile_rowptr, q, k, v, g, stats, out,
+                          n_rowtiles, tile, rows, d, scale, stream);
 }
 
-extern "C" int plnlp_flash_tiles_dkv(const void* vals_t, int vals_int8,
+extern "C" int plnlp_flash_tiles_dq_bf16(const void* vals, int vals_kind, const int* tile_col,
+                                         const int* tile_rowptr, const void* q, const void* k,
+                                         const void* v, const void* g, const float* stats,
+                                         float* out, int n_rowtiles, int tile, int rows, int d,
+                                         float scale, cudaStream_t stream) {
+  return launch_dq<bf16>(vals, vals_kind, tile_col, tile_rowptr, q, k, v, g, stats, out,
+                         n_rowtiles, tile, rows, d, scale, stream);
+}
+
+extern "C" int plnlp_flash_tiles_dkv(const void* vals_t, int vals_kind,
                                      const int* tile_col_t, const int* tile_rowptr_t,
                                      const float* q, const float* k, const float* v,
                                      const float* g, const float* stats, float* dk, float* dv,
                                      int n_rowtiles, int tile, int rows, int d, float scale,
                                      cudaStream_t stream) {
-  dispatch<LaunchBwd<true>::Of>(vals_int8, d, vals_t, tile_col_t, tile_rowptr_t, k, v, q, g,
-                                stats, dk, dv, n_rowtiles, tile, rows, d, scale, stream);
-  return (int)cudaGetLastError();
+  return launch_dkv<float>(vals_t, vals_kind, tile_col_t, tile_rowptr_t, q, k, v, g, stats, dk,
+                           dv, n_rowtiles, tile, rows, d, scale, stream);
+}
+
+extern "C" int plnlp_flash_tiles_dkv_bf16(const void* vals_t, int vals_kind,
+                                          const int* tile_col_t, const int* tile_rowptr_t,
+                                          const void* q, const void* k, const void* v,
+                                          const void* g, const float* stats, float* dk,
+                                          float* dv, int n_rowtiles, int tile, int rows, int d,
+                                          float scale, cudaStream_t stream) {
+  return launch_dkv<bf16>(vals_t, vals_kind, tile_col_t, tile_rowptr_t, q, k, v, g, stats, dk,
+                          dv, n_rowtiles, tile, rows, d, scale, stream);
 }
 
 extern "C" const char* plnlp_cuda_error_string(int err) {

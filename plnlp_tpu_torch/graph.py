@@ -14,6 +14,10 @@ Differences from the JAX package, all layout rather than semantics:
 * One extra field, ``blk_rowptr`` ``(n_rowblocks + 1,)`` int32: the first
   sub-block of each row-block, so a CUDA block finds its own edge range
   without the TPU kernel's grid-order carry.
+
+So ``tconv_map`` (``prepare_graph(couple_transpose=True)``) names other
+slots than the JAX package's array: it is the same pairing over this
+layout.
 """
 
 from __future__ import annotations
@@ -58,6 +62,10 @@ class Graph:
     blk_rowptr: Optional[torch.Tensor] = None  # [n_rowblocks + 1] int32
     block_rows: int = 0  # R: rows per row-block
     block_edges: int = 0  # B: edges per sub-block
+    # [nblk_t, B] int32 on the forward graph: for each slot of the
+    # transposed graph, the flat forward slot of the same edge (0 at
+    # padding); the blocked TransformerConv's backward (ops/transformer.py)
+    tconv_map: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -254,6 +262,31 @@ _BLOCK_ARRAYS = ("blk_src", "blk_weight", "blk_local", "blk_rowblock", "blk_rowp
 _CSR_ARRAYS = ("senders", "receivers", "edge_weight", "indptr")
 
 
+def _tconv_map_np(blocks, blocks_t, R: int, R_t: int) -> np.ndarray:
+    """Flat forward-slot index of each transposed-structure slot's edge.
+
+    Both blocked structures hold the real edge set once; matching the two
+    key-sorted slot lists element-wise pairs every transposed slot with the
+    forward slot of the same (src, dst) edge (duplicate edges too:
+    identical key multisets pair k-th with k-th).  Padding slots point at
+    0 and are masked by ``blk_weight == 0``.
+    """
+    stride = np.int64(1) << 31
+    f_dst = blocks["blk_rowblock"][:, None].astype(np.int64) * R + blocks["blk_local"]
+    keys_f = (f_dst * stride + blocks["blk_src"]).reshape(-1)
+    valid_f = blocks["blk_weight"].reshape(-1) != 0
+    t_rows = blocks_t["blk_rowblock"][:, None].astype(np.int64) * R_t + blocks_t["blk_local"]
+    keys_t = (blocks_t["blk_src"].astype(np.int64) * stride + t_rows).reshape(-1)
+    valid_t = blocks_t["blk_weight"].reshape(-1) != 0
+    kf, kt = keys_f[valid_f], keys_t[valid_t]
+    if kf.shape != kt.shape:
+        raise ValueError("the graph and its transpose hold different edge counts")
+    ff = np.nonzero(valid_f)[0]
+    out = np.zeros(keys_t.size, np.int64)
+    out[np.nonzero(valid_t)[0][np.argsort(kt, kind="stable")]] = ff[np.argsort(kf, kind="stable")]
+    return out.reshape(blocks_t["blk_src"].shape).astype(np.int32)
+
+
 def _to_graph(csr, blocks, device) -> Graph:
     """One host-to-device push of every array."""
     fields = {k: torch.from_numpy(csr[k]).to(device) for k in _CSR_ARRAYS}
@@ -298,13 +331,21 @@ def prepare_graph(
     symmetrize: bool = False,
     coalesce: bool = True,
     block: Optional[Tuple[int, int]] = (512, 512),
+    couple_transpose: bool = False,
     device=None,
 ) -> Tuple[Graph, Graph]:
     """(graph, transposed graph), both blocked, built on the host and pushed
     to the device once each.  The transpose carries the backward of the
-    blocked SpMM."""
+    blocked SpMM.  ``couple_transpose=True`` also attaches
+    ``graph.tconv_map``, the slot pairing the blocked TransformerConv's
+    backward needs (two host sorts of the edge list)."""
     from plnlp_tpu_torch import default_device
 
+    if couple_transpose and block is None:
+        raise ValueError(
+            "couple_transpose=True needs blocked metadata (block=(R, B)): the tconv slot "
+            "map pairs block slots between the two graphs"
+        )
     device = default_device(device)
     csr = _csr_np(src, dst, weight, num_nodes, symmetrize, coalesce)
     e = csr["num_edges"]
@@ -314,10 +355,12 @@ def prepare_graph(
     )
     if block is None:
         return _to_graph(csr, None, device), _to_graph(csr_t, None, device)
-    return (
-        _to_graph(csr, _blocks_np(csr, *block), device),
-        _to_graph(csr_t, _blocks_np(csr_t, *block), device),
-    )
+    blocks, blocks_t = _blocks_np(csr, *block), _blocks_np(csr_t, *block)
+    g = _to_graph(csr, blocks, device)
+    if couple_transpose:
+        tmap = _tconv_map_np(blocks, blocks_t, block[0], block[0])
+        g = dataclasses.replace(g, tconv_map=torch.from_numpy(tmap).to(device))
+    return g, _to_graph(csr_t, blocks_t, device)
 
 
 def with_blocks(graph: Graph, block_rows: int = 256, block_edges: int = 512) -> Graph:
@@ -331,4 +374,5 @@ def with_blocks(graph: Graph, block_rows: int = 256, block_edges: int = 512) -> 
         **{k: torch.from_numpy(blocks[k]).to(graph.device) for k in _BLOCK_ARRAYS},
         block_rows=blocks["block_rows"],
         block_edges=blocks["block_edges"],
+        tconv_map=None,  # pairs the old layout's slots
     )

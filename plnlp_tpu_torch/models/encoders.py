@@ -18,11 +18,12 @@ no edges, and their cotangents are zero.
 * WSAGE — out = lin_rel(Σ_j w_ij x_j) + lin_root(x_i), D⁻¹A precomputed.
 * TRANSFORMER — TransformerConv (one head): α_ij = softmax_j(⟨W_q x_i,
   W_k x_j⟩/√d), out = W_skip x_i + Σ_j α_ij W_v x_j, adjacency values
-  ignored.  Over a ``HybridGraph`` it is the block-sparse flash path
-  (``ops/tile_attention.py``); over a ``DenseAdj`` dense attention masked
-  where the adjacency is zero; over a ``Graph`` the per-edge path below.
-  (The JAX package's blocked hand-VJP over ``tconv_map`` is not ported
-  yet.)
+  ignored.  Dispatched in the JAX package's order: over a ``HybridGraph``
+  the block-sparse flash path (``ops/tile_attention.py``); over a blocked
+  ``Graph`` with ``tconv_map`` and a blocked transpose the hand-written
+  backward on K1 (``ops/transformer.py``); over a ``DenseAdj`` dense
+  attention masked where the adjacency is zero, with float32 logits and
+  softmax; otherwise the per-edge path below.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from plnlp_tpu_torch.dense import DenseAdj
 from plnlp_tpu_torch.graph import Graph, _pad_to
 from plnlp_tpu_torch.nn import apply_linear, glorot_init, torch_linear_init
 from plnlp_tpu_torch.nn import dropout as _dropout
+from plnlp_tpu_torch.ops import transformer as blocked_transformer
 from plnlp_tpu_torch.ops.sddmm import edge_softmax
 from plnlp_tpu_torch.ops.spmm import spmm
 from plnlp_tpu_torch.ops.tile_attention import hybrid_transformer_conv
@@ -80,19 +82,26 @@ def _transformer_conv(lp, graph, graph_t, x):
             f"TRANSFORMER over {type(graph).__name__} is not ported yet "
             "(GraphParallel: ROADMAP queue 1 item 11, multi-device runtime)"
         )
+    if (
+        isinstance(graph, Graph) and graph.blk_src is not None and graph.tconv_map is not None
+        and graph_t is not None and graph_t.blk_src is not None
+    ):
+        return blocked_transformer.transformer_conv_blocked(lp, graph, graph_t, x)
     d = lp["lin_query"].out_features
     q, k, v = (apply_linear(lp[name], x) for name in ("lin_query", "lin_key", "lin_value"))
     if isinstance(graph, DenseAdj):
         # The mask is a select, never a product: the row max is taken over
         # the edges only, exp sees 0 off the edges (no inf, so no NaN in the
         # gradient), and a row without an in-edge keeps only the skip term.
-        logits = (q @ k.t()) / math.sqrt(d)
+        # The logits and the softmax are float32 (bf16 products are exact in
+        # f32); the probabilities meet v in x's dtype.
+        logits = (q.float() @ k.float().t()) / math.sqrt(d)
         mask = graph.adj != 0
         f32 = torch.finfo(torch.float32)
         m = torch.where(mask, logits, f32.min).amax(1, keepdim=True)
         ex = torch.where(mask, torch.exp(torch.where(mask, logits - m, 0.0)), 0.0)
         denom = ex.sum(1, keepdim=True).clamp(min=f32.tiny)
-        return (ex / denom) @ v + apply_linear(lp["lin_skip"], x)
+        return (ex / denom).to(x.dtype) @ v + apply_linear(lp["lin_skip"], x)
     # per-edge path; k and v are gathered at the same ids in one wide gather
     kv = torch.cat([k, v], -1)[graph.senders]
     logits = (q[graph.receivers] * kv[:, :d]).sum(-1) / math.sqrt(d)

@@ -20,7 +20,13 @@ Replaces the TPU kernels of ``plnlp_tpu/ops/pallas_attention.py``:
 
 q, k, v, g and stats share one row count ``rows`` (num_nodes, or n_pad
 under padded-carry); rows past it read as zero features and stats
-(0, 1, 0).  A row tile's tiles are found through ``tile_rowptr``, so the
+(0, 1, 0).  q, k, v and g are float32 or, all four, bfloat16; the tile
+store ``vals`` is int8, float32 or bfloat16 and only its zero pattern is
+read.  The outputs and the stats are float32 either way.  In bfloat16 the
+functions are the TPU kernels' with bf16 features: the scores and g·v are
+f32 sums of bf16 products, and the weight of each second product is
+rounded to bf16 first (K3 ``num += bf16(p) v`` while ``den`` sums the f32
+p; K4 ``dq += bf16(ds) k``; K5 ``dk += bf16(ds) q``, ``dv += bf16(α) g``).  A row tile's tiles are found through ``tile_rowptr``, so the
 TPU kernel's first/last-visit flags and its lane-wide stats layouts are not
 needed.  The mask is a select everywhere: pad rows may carry features
 whose masked ``exp`` overflows, and ``0 * inf`` would be NaN.
@@ -49,24 +55,31 @@ __all__ = [
     "flash_tiles_dq_reference",
     "flash_tiles_dkv_reference",
     "LAUNCHES",
+    "LAUNCHES_BF16",
 ]
 
 # Kernel launches per kernel since the counts were last set to 0 (read by
-# chip_smoke.py to show that the main path ran through the kernels).
+# chip_smoke.py to show that the main path ran through the kernels):
+# LAUNCHES for float32 features, LAUNCHES_BF16 for bfloat16.
 LAUNCHES = {"fwd": 0, "dq": 0, "dkv": 0}
+LAUNCHES_BF16 = {"fwd": 0, "dq": 0, "dkv": 0}
+
+_FEATURES = (torch.float32, torch.bfloat16)
+# the tile store's code in the C interface
+_VALS_KIND = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2}
 
 # Tiles per step of the plain versions: bounds the live (C, T, T) scores.
 _CHUNK = 64
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    # vals, vals_int8, tile_col, tile_rowptr, q, k, v, num, ml,
+    # vals, vals_kind, tile_col, tile_rowptr, q, k, v, num, ml,
     # n_rowtiles, tile, rows, d, scale, stream
     "fwd": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
-    # vals, vals_int8, tile_col, tile_rowptr, q, k, v, g, stats, dq,
+    # vals, vals_kind, tile_col, tile_rowptr, q, k, v, g, stats, dq,
     # n_rowtiles, tile, rows, d, scale, stream
     "dq": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
-    # vals_t, vals_int8, tile_col_t, tile_rowptr_t, q, k, v, g, stats, dk,
+    # vals_t, vals_kind, tile_col_t, tile_rowptr_t, q, k, v, g, stats, dk,
     # dv, n_rowtiles, tile, rows, d, scale, stream
     "dkv": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
 }
@@ -78,7 +91,9 @@ _ARGTYPES = {
 
 
 def _tiles(a: torch.Tensor, n_rowtiles: int, t: int) -> torch.Tensor:
-    """(rows, D) -> (n_rowtiles, T, D), rows past the end zero."""
+    """(rows, D) -> (n_rowtiles, T, D) float32 (bf16 values are exact in
+    f32), rows past the end zero."""
+    a = a.float()
     pad = n_rowtiles * t - a.shape[0]
     if pad:
         a = torch.cat([a, a.new_zeros((pad, a.shape[1]))])
@@ -102,14 +117,21 @@ def _chunks(nt: int):
         yield slice(lo, min(lo + _CHUNK, nt))
 
 
+def _rounded(w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A product's f32 weight as the TPU kernel casts it before the
+    product: rounded to the features' dtype (a no-op for float32)."""
+    return w.to(like.dtype).float()
+
+
 def flash_tiles_fwd_reference(vals, tile_row, tile_col, q, k, v, n_rowtiles: int, scale: float):
     """K3's plain version, in two passes over the tile chunks: the row max,
     then the exp-weighted sums against it (the same partials as one online
-    sweep)."""
+    sweep; in bf16 the kernels round p against their running max, within
+    one bf16 ulp of each term)."""
     t, rows, d = vals.shape[1], q.shape[0], q.shape[1]
     qt, kt, vt = (_tiles(a, n_rowtiles, t) for a in (q, k, v))
     trow, tcol = tile_row.long(), tile_col.long()
-    m = q.new_full((n_rowtiles * t,), float("-inf"))
+    m = qt.new_full((n_rowtiles * t,), float("-inf"))
     local = torch.arange(t, device=q.device)
     for c in _chunks(vals.shape[0]):
         s = torch.bmm(qt[trow[c]], kt[tcol[c]].transpose(1, 2)) * scale
@@ -118,13 +140,13 @@ def flash_tiles_fwd_reference(vals, tile_row, tile_col, q, k, v, n_rowtiles: int
                           "amax")
     m = m.reshape(n_rowtiles, t)
     m_safe = torch.where(torch.isfinite(m), m, 0.0)
-    den = q.new_zeros((n_rowtiles, t))
-    num = q.new_zeros((n_rowtiles, t, d))
+    den = qt.new_zeros((n_rowtiles, t))
+    num = qt.new_zeros((n_rowtiles, t, d))
     for c in _chunks(vals.shape[0]):
         s = torch.bmm(qt[trow[c]], kt[tcol[c]].transpose(1, 2)) * scale
         p = torch.where(vals[c] != 0, torch.exp(s - m_safe[trow[c]][:, :, None]), 0.0)
         den.index_add_(0, trow[c], p.sum(2))
-        num.index_add_(0, trow[c], torch.bmm(p, vt[tcol[c]]))
+        num.index_add_(0, trow[c], torch.bmm(_rounded(p, v), vt[tcol[c]]))
     ml = torch.stack([m, den], -1).reshape(-1, 2)[:rows]
     return num.reshape(-1, d)[:rows], ml
 
@@ -141,14 +163,14 @@ def flash_tiles_dq_reference(vals, tile_row, tile_col, q, k, v, g, stats, n_rowt
     qt, kt, vt, gt = (_tiles(a, n_rowtiles, t) for a in (q, k, v, g))
     m, den, delta = _row_stats(stats, n_rowtiles, t)
     trow, tcol = tile_row.long(), tile_col.long()
-    dq = q.new_zeros((n_rowtiles, t, d))
+    dq = qt.new_zeros((n_rowtiles, t, d))
     for c in _chunks(vals.shape[0]):
         r, kc = trow[c], kt[tcol[c]]
         s = torch.bmm(qt[r], kc.transpose(1, 2)) * scale
         dav = torch.bmm(gt[r], vt[tcol[c]].transpose(1, 2))
         _, ds = _alpha_ds(s, vals[c] != 0, m[r][:, :, None], den[r][:, :, None],
                           delta[r][:, :, None], dav, scale)
-        dq.index_add_(0, r, torch.bmm(ds, kc))
+        dq.index_add_(0, r, torch.bmm(_rounded(ds, k), kc))
     return dq.reshape(-1, d)[:rows]
 
 
@@ -160,8 +182,8 @@ def flash_tiles_dkv_reference(vals_t, tile_row_t, tile_col_t, q, k, v, g, stats,
     qt, kt, vt, gt = (_tiles(a, n_rowtiles, t) for a in (q, k, v, g))
     m, den, delta = _row_stats(stats, n_rowtiles, t)
     src, dst = tile_row_t.long(), tile_col_t.long()
-    dk = q.new_zeros((n_rowtiles, t, d))
-    dv = q.new_zeros((n_rowtiles, t, d))
+    dk = qt.new_zeros((n_rowtiles, t, d))
+    dv = qt.new_zeros((n_rowtiles, t, d))
     for c in _chunks(vals_t.shape[0]):
         sr, ds_ = src[c], dst[c]
         qc, gc = qt[ds_], gt[ds_]
@@ -169,8 +191,8 @@ def flash_tiles_dkv_reference(vals_t, tile_row_t, tile_col_t, q, k, v, g, stats,
         dav = torch.bmm(vt[sr], gc.transpose(1, 2))
         alpha, ds = _alpha_ds(s, vals_t[c] != 0, m[ds_][:, None, :], den[ds_][:, None, :],
                               delta[ds_][:, None, :], dav, scale)
-        dk.index_add_(0, sr, torch.bmm(ds, qc))
-        dv.index_add_(0, sr, torch.bmm(alpha, gc))
+        dk.index_add_(0, sr, torch.bmm(_rounded(ds, q), qc))
+        dv.index_add_(0, sr, torch.bmm(_rounded(alpha, g), gc))
     return dk.reshape(-1, d)[:rows], dv.reshape(-1, d)[:rows]
 
 
@@ -192,18 +214,20 @@ def _check(vals, tile_row, tile_col, tile_rowptr, feats, stats=None):
             raise ValueError(f"{name} must be contiguous")
         if name.startswith("tile_") and a.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {a.dtype}")
-    if vals.dtype not in (torch.int8, torch.float32):
-        raise TypeError(f"vals must be int8 or float32, got {vals.dtype}")
+    if vals.dtype not in _VALS_KIND:
+        raise TypeError(f"vals must be int8, float32 or bfloat16, got {vals.dtype}")
     if vals.dim() != 3 or vals.shape[1] != vals.shape[2]:
         raise ValueError(f"vals must be (nt, T, T), got {tuple(vals.shape)}")
     if vals.shape[1] % 16:
         raise ValueError(f"the tile size must be a multiple of 16, got {vals.shape[1]}")
     if tile_row.shape != (vals.shape[0],) or tile_col.shape != (vals.shape[0],):
         raise ValueError("tile_row and tile_col must have one entry per tile")
-    shape = feats[0].shape
+    shape, dtype = feats[0].shape, feats[0].dtype
+    if dtype not in _FEATURES:
+        raise TypeError(f"features must be float32 or bfloat16, got {dtype}")
     for a in feats:
-        if a.dtype != torch.float32:
-            raise TypeError(f"features must be float32, got {a.dtype}")
+        if a.dtype != dtype:
+            raise TypeError(f"q, k, v (and g) must share one dtype, got {a.dtype} and {dtype}")
         if a.dim() != 2 or a.shape != shape:
             raise ValueError(f"q, k, v (and g) must be one (rows, D) shape, got {tuple(a.shape)}")
     if stats is not None and (stats.dtype != torch.float32 or stats.shape != (shape[0], 3)):
@@ -216,8 +240,10 @@ def _check(vals, tile_row, tile_col, tile_rowptr, feats, stats=None):
 
 def _launch(kind: str, feats, ptrs, vals, tile_rowptr, scale: float):
     rows, d = feats[0].shape
-    if d % 4 == 0 and any(a.data_ptr() % 16 for a in feats):
-        # the kernels stage rows with 16-byte loads when d is a multiple of 4
+    bf16 = feats[0].dtype == torch.bfloat16
+    if d % (16 // feats[0].element_size()) == 0 and any(a.data_ptr() % 16 for a in feats):
+        # the kernels stage rows with 16-byte loads when a row is a whole
+        # number of them (d a multiple of 4 in f32, of 8 in bf16)
         raise ValueError("q, k, v (and g) must be 16-byte aligned")
     if vals.data_ptr() % 16:
         # K4 and K5 read a tile row's 8 values a lane in one load
@@ -225,22 +251,23 @@ def _launch(kind: str, feats, ptrs, vals, tile_rowptr, scale: float):
     from plnlp_tpu_torch import _build
 
     lib = _build.load("flash_tiles")
-    fn = getattr(lib, f"plnlp_flash_tiles_{kind}")
+    fn = getattr(lib, f"plnlp_flash_tiles_{kind}" + ("_bf16" if bf16 else ""))
     fn.argtypes = _ARGTYPES[kind]
     fn.restype = ctypes.c_int
     t = vals.shape[1]
     device = feats[0].device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(vals.data_ptr(), int(vals.dtype == torch.int8), *ptrs,
+        err = fn(vals.data_ptr(), _VALS_KIND[vals.dtype], *ptrs,
                  tile_rowptr.shape[0] - 1, t, rows, d, float(scale), stream)
-    _build.check(lib, err, f"flash_tiles_{kind} launch (T={t}, D={d})")
-    LAUNCHES[kind] += 1
+    _build.check(lib, err, f"flash_tiles_{kind} launch ({feats[0].dtype}, T={t}, D={d})")
+    (LAUNCHES_BF16 if bf16 else LAUNCHES)[kind] += 1
 
 
 def flash_tiles_fwd(vals, tile_row, tile_col, tile_rowptr, q, k, v, scale: float):
-    """K3: (num (rows, D), ml (rows, 2) = (m, den)) over the row-sorted
-    tiles.  CUDA tensors launch the kernel; CPU tensors take
+    """K3: (num (rows, D), ml (rows, 2) = (m, den)), float32, over the
+    row-sorted tiles.  CUDA tensors launch the kernel of q's dtype (never
+    the other one, never through a cast); CPU tensors take
     :func:`flash_tiles_fwd_reference`."""
     _check(vals, tile_row, tile_col, tile_rowptr, (q, k, v))
     n_r = tile_rowptr.shape[0] - 1
@@ -258,9 +285,9 @@ def flash_tiles_fwd(vals, tile_row, tile_col, tile_rowptr, q, k, v, scale: float
 
 
 def flash_tiles_dq(vals, tile_row, tile_col, tile_rowptr, q, k, v, g, stats, scale: float):
-    """K4: dq (rows, D) over the row-sorted tiles, from the global row stats
-    (M, den, δ).  CUDA tensors launch the kernel; CPU tensors take
-    :func:`flash_tiles_dq_reference`."""
+    """K4: dq (rows, D) float32 over the row-sorted tiles, from the global
+    row stats (M, den, δ).  CUDA tensors launch the kernel of q's dtype;
+    CPU tensors take :func:`flash_tiles_dq_reference`."""
     _check(vals, tile_row, tile_col, tile_rowptr, (q, k, v, g), stats)
     n_r = tile_rowptr.shape[0] - 1
     if q.device.type == "cpu":
@@ -277,9 +304,9 @@ def flash_tiles_dq(vals, tile_row, tile_col, tile_rowptr, q, k, v, g, stats, sca
 
 def flash_tiles_dkv(vals_t, tile_row_t, tile_col_t, tile_rowptr_t, q, k, v, g, stats,
                     scale: float):
-    """K5: (dk, dv), each (rows, D), over the transposed (source-sorted)
-    tile set.  CUDA tensors launch the kernel; CPU tensors take
-    :func:`flash_tiles_dkv_reference`."""
+    """K5: (dk, dv), each (rows, D) float32, over the transposed
+    (source-sorted) tile set.  CUDA tensors launch the kernel of q's dtype;
+    CPU tensors take :func:`flash_tiles_dkv_reference`."""
     _check(vals_t, tile_row_t, tile_col_t, tile_rowptr_t, (q, k, v, g), stats)
     n_r = tile_rowptr_t.shape[0] - 1
     if q.device.type == "cpu":

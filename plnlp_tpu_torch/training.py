@@ -95,11 +95,6 @@ class Model(nn.Module):
             raise ValueError(
                 f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, got {cfg.compute_dtype!r}"
             )
-        if cfg.compute_dtype == "bfloat16" and cfg.encoder.upper() == "TRANSFORMER":
-            raise NotImplementedError(
-                "TRANSFORMER with compute_dtype bfloat16 is not ported yet (ROADMAP queue 1 "
-                "item 12: K3-K5 on bf16 q/k/v with ops/transformer.py); use float32"
-            )
         self.cfg = cfg
         self.compute_dtype = COMPUTE_DTYPES[cfg.compute_dtype]
         self.num_nodes = num_nodes

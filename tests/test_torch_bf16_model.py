@@ -1,7 +1,9 @@
 """plnlp_tpu_torch's ``Model`` in bfloat16 against plnlp_tpu's (CPU).
 
-SAGE, GCN and WSAGE over blocked CSR, the hybrid operand (bf16 tile store
-where int8 is not exact) and the dense adjacency: ``encode`` and three
+SAGE, GCN, WSAGE and TRANSFORMER over blocked CSR (TRANSFORMER's with
+``couple_transpose=True`` on both sides, so both take the blocked hand
+VJP), the hybrid operand (bf16 tile store where int8 is not exact) and the
+dense adjacency: ``encode`` and three
 train steps' losses against the JAX ``Model`` in bf16 with the same
 parameters (``params_from_jax``) and batches, and against the port in f32,
 at the JAX package's own bf16 bound (tests/test_fuzz_parity.py: rtol 3e-2,
@@ -47,7 +49,7 @@ def _operands(encoder, backend):
     elif encoder == "WSAGE":
         src, dst, w = tgraph.row_normalize_edges(src, dst, None, N)
     if backend == "csr":
-        kw = dict(num_nodes=N, block=(32, 128))
+        kw = dict(num_nodes=N, block=(32, 128), couple_transpose=encoder == "TRANSFORMER")
         return (*tgraph.prepare_graph(src, dst, w, device="cpu", **kw),
                 *jgraph.prepare_graph(src, dst, w, **kw))
     if backend == "dense":
@@ -72,6 +74,9 @@ MODEL_CASES = [
     ("WSAGE", "csr", "MLPDOT", "CE", "SGD"),
     ("WSAGE", "hybrid", "MLPCAT", "CE", "Adam"),
     ("WSAGE", "dense", "MLPBIL", "CE", "Adam"),
+    ("TRANSFORMER", "csr", "DOT", "AUC", "Adam"),
+    ("TRANSFORMER", "hybrid", "MLP", "CE", "Adam"),
+    ("TRANSFORMER", "dense", "MLPCAT", "CE", "SGD"),
 ]
 
 

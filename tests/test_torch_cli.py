@@ -230,13 +230,40 @@ def test_score_pairs_equals_restored_scorer(tmp_path, train_backend):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (dict(compute_dtype="bfloat16", encoder="TRANSFORMER"), "item 12"),
     (dict(num_shards=2), "item 11"),
     (dict(mesh_data=2), "item 11"),
 ])
 def test_unported_flags_raise(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         _run(_args(**flag))
+
+
+@pytest.mark.parametrize("backend", ["csr", "hybrid"])
+def test_transformer_bf16_runs(backend):
+    """TRANSFORMER in bf16 trains and evaluates over blocked CSR (the
+    blocked hand VJP) and over the hybrid operand (K3-K5's bf16 plain
+    versions)."""
+    kw = dict(data_name=SBM, **TILES) if backend == "hybrid" else dict(adj_backend="csr")
+    lines = []
+    loggers = _run(_args(encoder="TRANSFORMER", compute_dtype="bfloat16", **kw),
+                   log=lines.append)
+    assert any("-> hybrid" in str(line) for line in lines) == (backend == "hybrid")
+    res = np.asarray(loggers["Hits@20"].results[0])
+    assert res.shape == (2, 2) and np.isfinite(res).all()
+
+
+@pytest.mark.parametrize("encoder", ["TRANSFORMER", "SAGE"])
+def test_prepare_experiment_couples_the_transpose_for_transformer(encoder):
+    """Over csr the TRANSFORMER operand carries tconv_map, as the JAX
+    CLI's does, so the encoder takes the blocked hand VJP; other encoders'
+    do not."""
+    args = _args(encoder=encoder, adj_backend="csr", block_rows=64, block_edges=64)
+    got = cli.prepare_experiment(args, log=lambda *_: None, device="cpu")
+    ref = jcli.prepare_experiment(args, log=lambda *_: None)
+    assert (got["graph"].tconv_map is not None) == (encoder == "TRANSFORMER")
+    assert (ref["graph"].tconv_map is not None) == (encoder == "TRANSFORMER")
+    if encoder == "TRANSFORMER":
+        assert got["graph"].tconv_map.shape == got["graph_t"].blk_src.shape
 
 
 def test_profile_dir_and_main(tmp_path):

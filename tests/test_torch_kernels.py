@@ -389,3 +389,95 @@ def test_flash_forward_compacted_lists(store, t, d):
     assert not num[block].any()
     assert torch.isneginf(ml[block][~has, 0]).all() and not ml[block][~has, 1].any()
     assert torch.isneginf(ml[2 * t: 3 * t, 0]).all() and not ml[2 * t: 3 * t, 1].any()
+
+
+def _flash_operand(store, t, d, gen, n_r=7, nt=13):
+    trow = torch.sort(torch.tensor([0, 1, 3, 4, 6], device="cuda")[
+        torch.randint(0, 5, (nt,), device="cuda", generator=gen)]).values.int()
+    tcol = torch.randint(0, n_r, (nt,), device="cuda", generator=gen).int()
+    mask = torch.rand(nt, t, t, device="cuda", generator=gen) < 0.1
+    mask[trow == 1, 5, :] = True  # a full row: K3's and K4's lists drain
+    if store is torch.int8:
+        vals = (mask * torch.randint(1, 3, (nt, t, t), device="cuda", generator=gen)).to(store)
+    else:
+        vals = (mask * torch.randn(nt, t, t, device="cuda", generator=gen)).to(store)
+    return trow, tcol, vals
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t,d", [(32, 24), (64, 100), (256, 256), (16, 300), (32, 520)])
+def test_flash_tiles_bf16_match_plain_versions(store, t, d):
+    """K3, K4, K5's bf16 entry points (bf16 q, k, v, g; f32 outputs and
+    stats) against their bf16 plain versions with chip_smoke's checks: the
+    f32 sums' tolerance plus 2**-7 of the sum of the terms' magnitudes (a
+    weight rounded to bf16 before its product may land one ulp apart), m
+    and den as in f32, a second launch of each bitwise equal; only the bf16
+    counts move.  d = 24, 256 and 520 take the 16-byte column path (8 bf16
+    a load), 100 and 300 the scalar one; 300 and 520 more than one
+    256-column slice; row tiles 2 and 5 uncovered, the last ragged."""
+    _need_cuda()
+    import chip_smoke
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n_r = 7
+    trow, tcol, vals = _flash_operand(store, t, d, gen, n_r)
+    rows = n_r * t - 3
+    q, k, v, g = (torch.randn(rows, d, device="cuda", generator=gen).to(torch.bfloat16)
+                  for _ in range(4))
+    before = (dict(ft.LAUNCHES), dict(ft.LAUNCHES_BF16))
+    chip_smoke.check_flash_kernels(*_tile_sets(trow, tcol, vals, n_r), q, k, v, g, rows)
+    assert ft.LAUNCHES == before[0]
+    assert ft.LAUNCHES_BF16 == {kind: before[1][kind] + 2 for kind in ("fwd", "dq", "dkv")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_matmul_takes_exact_zero_weights_mid_row(dtype):
+    """K1 with weights computed as ops/transformer.py computes them, exact
+    zeros at live slots: every third slot of the hub row (which crosses many
+    runs) and whole runs of it, all of rows 7..9, and the first and last
+    slot of every run.  A skipped live slot adds 0 either way; the rows,
+    runs and carries must come out as the plain version's, rows with only
+    zero weights exactly 0."""
+    _need_cuda()
+    n, (g,) = _skewed_graphs((512, 512))
+    w = g.blk_weight.clone()
+    live = w != 0
+    flat = w.view(-1)
+    dst = (g.blk_rowblock[:, None].long() * g.block_rows + g.blk_local).view(-1)
+    hub = (dst == 5) & live.view(-1)
+    hub_slots = hub.nonzero()[:, 0]
+    flat[hub_slots[::3]] = 0.0
+    flat[hub_slots[200:600]] = 0.0  # whole runs of 128 slots
+    flat[((dst >= 7) & (dst <= 9))] = 0.0
+    run = 128  # csrc/scatter_matmul.cu's kRun
+    flat[::run] = 0.0
+    flat[run - 1::run] = 0.0
+    x = torch.randn(n, 256, device="cuda").to(dtype)
+    args = (g.blk_src, g.blk_local, w, g.blk_rowptr, g.block_rows, n)
+    got = sm.scatter_matmul(x, *args)
+    again = sm.scatter_matmul(x, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = sm.scatter_matmul_reference(x, *args)
+    abs_sum = sm.scatter_matmul_reference(x.float().abs(), g.blk_src, g.blk_local, w.abs(),
+                                          *args[3:])
+    if dtype is torch.bfloat16:
+        assert _within_bf16_tolerance(got, want, abs_sum)
+    else:
+        assert _within_sum_tolerance(got, want, abs_sum)
+    assert not got[7:10].any()
+
+
+@pytest.mark.cuda
+def test_blocked_transformer_on_the_card():
+    """ops/transformer.py's layer over a graph with rows of one in-edge,
+    self loops, duplicate edges and isolated rows, through K1 on the card
+    against the same layer through K1's plain version on the CPU, f32 and
+    bf16 (chip_smoke phase 29's check); K1 launches once forward and three
+    times backward, in the entry point of x's dtype."""
+    _need_cuda()
+    import chip_smoke
+
+    chip_smoke.check_blocked_small(torch.device("cuda"))

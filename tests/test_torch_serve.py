@@ -280,9 +280,6 @@ def test_params_from_jax_rejects_mismatches():
 
 
 def test_model_rejects_unported_options():
-    with pytest.raises(NotImplementedError, match="TRANSFORMER.*bfloat16.*item 12"):
-        Model(ModelConfig(encoder="TRANSFORMER", compute_dtype="bfloat16"), num_nodes=4,
-              device="cpu")
     # TRANSFORMER is ported over a HybridGraph, a DenseAdj and a CSR Graph;
     # other operands (GraphParallel) are not
     tm = Model(ModelConfig(encoder="TRANSFORMER", emb_hidden_channels=4,
