@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the plnlp_tpu_torch serving and training paths (SAGE and
 TRANSFORMER, float32 and bfloat16, over the hybrid operand and blocked
-CSR) and the training CLI on one NVIDIA GPU and check them.
+CSR), the partitioned multi-device path and the training CLI on NVIDIA
+GPUs (one card, or up to four) and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -126,7 +127,36 @@ Phases (any failure exits non-zero):
    one epoch in f32 and one in bf16 (only K1-bf16), phase 19's SBM command
    in bf16 (``auto`` -> hybrid, only the bf16 K3-K5) and its
    ``--score_pairs`` against the restored Scorer;
-31. print the card's name and power limit, the ``{"kernels": [...]}`` line
+31. the native host library (``csrc/graphcore.cpp``, built in phase 1 with
+   g++; a NumPy fallback fails): ``coalesce_add``, ``blocks_build``,
+   ``label_prop`` and ``bfs_order`` bit for bit against their NumPy plain
+   versions on a 20,000-node graph, with both times; the label-prop order
+   on phase 7's SBM, natively (phase 7's estimate runs natively too, and at
+   seed 0 its coverage and tile count must stay 0.9442 and 2,658);
+31b. K1 over a real 4-shard partition of the collab graph on this card, in
+   one process with no collective: ``partition_graph(num_shards=4,
+   reorder='bfs')`` with its halo plan, every shard's blocks placed by
+   ``GraphParallel.place``, K1 run per shard over the gathered buffer (the
+   all_gather body: global source slots, per-shard ``blk_rowptr``) and
+   over the shard's own rows plus the halo buffer as the exchange would
+   fill it (local and remote blocks), forward and backward (the
+   source-sharded structure); the shards' rows, reassembled through the
+   slot permutation, against K1 over the single operand (1e-5 + 1e-6
+   sum|terms|), with the per-shard K1 times beside the single operand's;
+32. the partitioned path (``parallel/``) on W = min(cards, 4) ranks, one
+   process and one card each over NCCL (W = 1 on a one-card machine), at
+   collab's shape (2-layer SAGE, width 256, batch 65,536) over
+   ``make_graph_parallel`` with reorder bfs and comm all_gather, then halo:
+   the partitioned encode against the single operand's under the same
+   parameters (1e-5 + 1e-6 sum|terms|), K1 2 launches an encode and 4 a
+   step on every rank (halo: twice that, local and remote), one
+   ``train_epoch(mesh=)`` with a finite loss, ``Model.test(mesh=)``,
+   ``Scorer(mesh=).score`` on 65,536 pairs (DOT and MLP); one epoch in
+   bf16 (only K1-bf16); the build, step and epoch times beside the single
+   operand's on the same card; with W = 4 also (data, node) = (2, 2);
+33. the collab command through ``torchrun --nproc_per_node=W -m
+   plnlp_tpu_torch --num_shards W`` for one epoch;
+34. print the card's name and power limit, the ``{"kernels": [...]}`` line
    (K1 to K5, the bf16 K1 and K2, and the bf16 K3, K4 and K5), and
    ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -168,6 +198,13 @@ SMALL = 10  # the card-vs-CPU step runs at 1/SMALL of the size
 DDI_NODES, DDI_EDGES = 4_267, 1_067_911
 SBM_NODES, SBM_EDGES, SBM_COMMUNITIES = 60_000, 300_000, 200
 CLI_PAIRS = 65_536
+# Phase 7's label-prop estimate on the SBM at seed 0 (coverage, tiles), as
+# the NumPy sweep made it; the native sweep must give the same.
+PHASE7_ESTIMATE = (0.9442, 2658)
+# The partitioned path: at most this many ranks, one card each, and how
+# long they may take in all.
+MAX_RANKS = 4
+PARALLEL_TIMEOUT_S = 900
 TOL = 1e-4  # rtol = atol for values that are not long sums (h, scores)
 # A kernel output is a sum of up to max_degree (26k here) f32 terms, added in
 # another order than the plain version adds them (K1's runs and carries, K2's
@@ -413,6 +450,11 @@ def train_path(args, dev, card):
         f"{est['coverage']:.4f}, {est['num_tiles']} tiles; generate {t_gen:.1f} s, "
         f"estimate {t_est:.1f} s, build {t_build:.1f} s")
     require(est["coverage"] >= AUTO_COVERAGE, f"coverage {est['coverage']} < {AUTO_COVERAGE}")
+    if args.seed == 0 and n == 235_868:
+        # the native sweep gives the NumPy sweep's labels: the estimate the
+        # NumPy sweep made on this graph does not move
+        require((round(est["coverage"], 4), est["num_tiles"]) == PHASE7_ESTIMATE,
+                f"estimate ({est['coverage']:.4f}, {est['num_tiles']}) != {PHASE7_ESTIMATE}")
     require(hg.res_graph is not None, "the operand has a residual")
     log(f"[train-data] hybrid: nt={hg.num_tiles} over {n_r} row tiles, dense share "
         f"{hg.dense_edges / e:.4f} ({hg.dense_edges} of {e} edges), store "
@@ -2133,6 +2175,453 @@ def cli_path(args, dev, card, tmp):
     return total
 
 
+# ---------------------------------------------------------------------------
+# The native host library and the multi-device runtime
+# ---------------------------------------------------------------------------
+
+
+def native_phase(args, data):
+    """Phase 31: the native library against the NumPy plain versions, bit
+    for bit, on a 20,000-node graph, and the label-prop sweep on phase 7's
+    SBM, natively."""
+    from plnlp_tpu_torch import graph as G
+    from plnlp_tpu_torch import native
+    from plnlp_tpu_torch.ops import tile_spmm as ts
+    from plnlp_tpu_torch.parallel import partition as P
+
+    require(native.available(), "the native library runs (the NumPy fallback fails the phase)")
+    rng = np.random.default_rng(args.seed)
+    n, e = 20_000, 200_000
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    w = (rng.random(e) + 0.1).astype(np.float32)
+    csr = G._csr_np(src, dst, w, n, False, True)
+    indptr, indices = G._undirected_csr_np(src, dst, n)
+    seeds = np.argsort(-np.diff(indptr), kind="stable")
+    cases = {
+        "coalesce_add": (lambda: native.coalesce_add(src, dst, w, n),
+                         lambda: G._coalesce_plain(src, dst, w, n)),
+        "blocks_build": (lambda: native.blocks_build(csr["senders"], csr["receivers"],
+                                                     csr["edge_weight"], csr["indptr"], n, *BLOCK),
+                         lambda: G._blocks_plain(csr, *BLOCK)),
+        "label_prop": (lambda: native.label_prop(indptr, indices, n, 20),
+                       lambda: ts._label_prop_plain(src, dst, n, 20)),
+        "bfs_order": (lambda: native.bfs_order(indptr, indices, n, seeds),
+                      lambda: P._bfs_order_plain(indptr, indices, n, seeds)),
+    }
+
+    def bits(v):
+        v = np.asarray(v)
+        return v.view(np.uint32) if v.dtype == np.float32 else v
+
+    for name, (nat, plain) in cases.items():
+        t0 = time.perf_counter()
+        got = nat()
+        t_nat = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = plain()
+        t_plain = time.perf_counter() - t0
+        if isinstance(want, dict):
+            got, want = [got[k] for k in sorted(want)], [want[k] for k in sorted(want)]
+        elif not isinstance(want, tuple):
+            got, want = [got], [want]
+        same = all(
+            (a is None and b is None) or (np.asarray(a).dtype == np.asarray(b).dtype
+                                          and np.array_equal(bits(a), bits(b)))
+            for a, b in zip(got, want)
+        )
+        log(f"[native] {name} on N={n} E={e}: native {t_nat * 1e3:.1f} ms, NumPy "
+            f"{t_plain * 1e3:.1f} ms, bit for bit {same}")
+        require(same, f"native {name} differs from its NumPy version")
+    s_src, s_dst = data["edges"]
+    t0 = time.perf_counter()
+    order = ts.label_prop_order(s_src, s_dst, N_NODES)
+    t_lp = time.perf_counter() - t0
+    require(np.array_equal(np.sort(order), np.arange(N_NODES)), "label-prop order is a permutation")
+    t_est = data["seconds"][1]
+    log(f"[native] label-prop order on phase 7's SBM (N={N_NODES}, E={len(s_src)}): "
+        f"{t_lp:.3f} s natively; phase 7's whole estimate {t_est:.3f} s (the NumPy sweep: "
+        f"21.4 s on this graph, PERF.md section 5)")
+    return {"label_prop_s": t_lp, "estimate_s": t_est}
+
+
+def shard_k1_phase(graph, graph_t, src, dst, gen, card):
+    """Phase 31b: K1 over each shard of a 4-shard partition on this card
+    (one process, the exchanges done by indexing) against K1 over the
+    single operand."""
+    import torch
+
+    from plnlp_tpu_torch.ops import scatter_matmul as sm
+    from plnlp_tpu_torch.parallel.graph_parallel import GraphParallel, _k1, shard_node_features
+    from plnlp_tpu_torch.parallel.mesh import Mesh
+    from plnlp_tpu_torch.parallel.partition import partition_graph, with_halo
+
+    S, dev, n = 4, graph.blk_src.device, graph.num_nodes
+    t0 = time.perf_counter()
+    pg = with_halo(partition_graph(src, dst, None, num_nodes=n, num_shards=S, block=BLOCK,
+                                   symmetrize=True, reorder="bfs"))
+    build_s = time.perf_counter() - t0
+    shards = [GraphParallel.place(pg, Mesh(1, S, rank=s, device=dev), "halo") for s in range(S)]
+    rps = pg.rows_per_shard
+    log(f"[shards] S={S} reorder={pg.reorder} rows_per_shard={rps} shard_edges={pg.shard_edges} "
+        f"halo q={pg.halo_quota} qh={pg.halo_hubs}, built in {build_s:.2f} s")
+
+    def to_slots(v):  # (n, D) in node order -> (S * rps, D): the gathered buffer
+        return torch.cat([shard_node_features(v, shard) for shard in shards])
+
+    def halo_body(v_slots, d, direction):
+        plan = getattr(shards[d], f"{direction}_halo")
+        rows = [v_slots[s * rps:(s + 1) * rps] for s in range(S)]
+        sends = [getattr(shards[s], f"{direction}_halo")["send_idx"].reshape(S, -1)[d]
+                 for s in range(S)]
+        hubs = [getattr(shards[s], f"{direction}_halo")["hub_idx"] for s in range(S)]
+        buf = torch.cat([r.index_select(0, i) for r, i in zip(rows, sends)]
+                        + [r.index_select(0, i) for r, i in zip(rows, hubs)])
+        return _k1(rows[d], plan["loc"], shards[d]) + _k1(buf, plan["rem"], shards[d])
+
+    def bodies(v_slots, direction):
+        return {
+            "all_gather": [_k1(v_slots, getattr(shards[d], direction), shards[d])
+                           for d in range(S)],
+            "halo": [halo_body(v_slots, d, direction) for d in range(S)],
+        }
+
+    def to_nodes(parts):
+        return torch.cat(parts).index_select(0, shards[0].node_map)
+
+    sm.LAUNCHES = 0
+    ok = True
+    for direction, g in (("fwd", graph), ("bwd", graph_t)):
+        v = torch.randn(n, WIDTH, device=dev, generator=gen)
+        kargs = (g.blk_src, g.blk_local, g.blk_weight, g.blk_rowptr, g.block_rows, n)
+        want = sm.scatter_matmul(v, *kargs)
+        scale = sm.scatter_matmul_reference(v.abs(), g.blk_src, g.blk_local, g.blk_weight.abs(),
+                                            g.blk_rowptr, g.block_rows, n)
+        v_slots = to_slots(v)
+        for body, parts in bodies(v_slots, direction).items():
+            ea, ratio, good = sum_errors(to_nodes(parts), want, scale)
+            ok &= good
+            log(f"[shards] {direction} {body}: 4 shards' K1 reassembled vs K1 over the single "
+                f"operand: max_abs={ea:.3e} max err/tol={ratio:.3f} ok={good}")
+        torch.cuda.synchronize()
+    # a direction: the single operand's K1, each shard's all_gather K1, and
+    # each shard's halo K1 twice (local, remote)
+    launches, want_launches = sm.LAUNCHES, 2 * (1 + S + 2 * S)
+    require(launches == want_launches,
+            f"{launches} K1 launches over the shards, want {want_launches}")
+    require(ok, "K1 over the 4 shards differs from K1 over the single operand")
+    x_slots = to_slots(torch.randn(n, WIDTH, device=dev, generator=gen))
+    xn = x_slots.index_select(0, shards[0].node_map)
+    single_ms = cuda_ms(lambda: sm.scatter_matmul(xn, graph.blk_src, graph.blk_local,
+                                                  graph.blk_weight, graph.blk_rowptr,
+                                                  graph.block_rows, n), reps=10, runs=3)
+    ag_ms = [cuda_ms(lambda d=d: _k1(x_slots, shards[d].fwd, shards[d]), reps=10, runs=3)
+             for d in range(S)]
+    halo_ms = [cuda_ms(lambda d=d: halo_body(x_slots, d, "fwd"), reps=10, runs=3)
+               for d in range(S)]
+    log(f"[shards] forward K1 per shard, all_gather body "
+        f"{', '.join(f'{t:.4f}' for t in ag_ms)} ms (sum {sum(ag_ms):.4f}); halo body with its "
+        f"buffer's gather {', '.join(f'{t:.4f}' for t in halo_ms)} ms (sum {sum(halo_ms):.4f}); "
+        f"K1 over the single operand {single_ms:.4f} ms; card {card}")
+    return {"build_s": build_s, "ag_ms": ag_ms, "halo_ms": halo_ms, "single_ms": single_ms}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _parallel_rank(rank, world, port, out_path, opts):
+    """One rank of the partitioned path (its own process, its own card)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    cuda = opts["backend"] == "nccl"
+    if cuda:
+        torch.cuda.set_device(rank)
+        dev = torch.device("cuda", rank)
+    else:  # a rehearsal on the CPU under gloo
+        torch.set_num_threads(1)
+        dev = torch.device("cpu")
+    dist.init_process_group(
+        opts["backend"], init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=PARALLEL_TIMEOUT_S),
+        device_id=dev if cuda else None,
+    )
+    try:
+        result = _parallel_work(rank, world, dev, opts)
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _parallel_work(rank, world, dev, opts):
+    """Phase 32 on one rank; rank 0's numbers are returned."""
+    import torch
+
+    from plnlp_tpu_torch import prepare_graph
+    from plnlp_tpu_torch.data import make_synthetic_dataset
+    from plnlp_tpu_torch.ops import scatter_matmul as sm
+    from plnlp_tpu_torch.parallel import make_graph_parallel, make_mesh
+    from plnlp_tpu_torch.serve import Scorer
+    from plnlp_tpu_torch.training import Model, ModelConfig
+
+    cuda = dev.type == "cuda"
+    say = log if rank == 0 else (lambda _msg: None)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    n, seed, width, batch = opts["n_nodes"], opts["seed"], opts["width"], opts["batch"]
+    ds = make_synthetic_dataset("hits", num_nodes=n, num_edges=opts["n_edges"], seed=seed)
+    src, dst = ds["edge_index"]
+    graph, graph_t = prepare_graph(src, dst, None, num_nodes=n, symmetrize=True, block=BLOCK,
+                                   device=dev)
+    twin, _ = prepare_graph(src, dst, None, num_nodes=n, symmetrize=True, block=None, device=dev)
+    pos = torch.as_tensor(ds["split_edge"]["train"]["edge"], device=dev)
+    split = {s: {"pos": ds["split_edge"][s]["edge"], "neg": ds["split_edge"][s]["edge_neg"]}
+             for s in ("valid", "test")}
+    pairs = np.random.default_rng(seed).integers(0, n, (opts["pairs"], 2))
+    steps = -(-pos.shape[0] // batch)
+    cfg = ModelConfig(encoder="SAGE", predictor="DOT", gnn_num_layers=2, emb_hidden_channels=width,
+                      gnn_hidden_channels=width, mlp_hidden_channels=width, batch_size=batch)
+    mlp_cfg = dataclasses.replace(cfg, predictor="MLP")
+
+    def k1():
+        return {"K1": sm.LAUNCHES, "K1bf16": sm.LAUNCHES_BF16}
+
+    def zero():
+        sync()
+        sm.LAUNCHES = sm.LAUNCHES_BF16 = 0
+
+    def launches_ok(what, want):
+        got = k1()
+        if cuda:  # a wrapper counts where it launches the kernel: on the card
+            require(got == want, f"rank {rank} {what}: launches {got}, want {want}")
+        return got
+
+    def time_steps(model, opt, g, g_t, mesh, reps=5):
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        pos_b = pos[:batch]
+        neg_b = model.sample_negatives(gen, twin, pos_b)
+        mask = torch.ones(pos_b.shape[0], device=dev)
+        kw = {} if mesh is None else {"mesh": mesh}
+        model.train_step(opt, g, g_t, None, pos_b, neg_b, None, mask, 1e-3, gen, **kw)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            model.train_step(opt, g, g_t, None, pos_b, neg_b, None, mask, 1e-3, gen, **kw)
+        sync()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    def epoch(model, opt, g, g_t, mesh):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        zero()
+        t0 = time.perf_counter()
+        loss = model.train_epoch(opt, g, g_t, None, pos, None, gen, 1e-3, sample_graph=twin,
+                                 mesh=mesh)
+        sync()
+        return loss, time.perf_counter() - t0
+
+    out = {"world": world, "steps": steps, "comm": {}, "launches": {"K1": 0, "K1bf16": 0}}
+
+    def add(counts):
+        for k, v in counts.items():
+            out["launches"][k] += v
+
+    # the single operand's step and epoch on this card, for comparison
+    ref_mlp = Model(mlp_cfg, n, seed=seed, device=dev)
+    opt = ref_mlp.make_optimizer()
+    out["single_step_ms"] = time_steps(ref_mlp, opt, graph, graph_t, None)
+    single = Model(mlp_cfg, n, seed=seed, device=dev)
+    loss, out["single_epoch_s"] = epoch(single, single.make_optimizer(), graph, graph_t, None)
+    require(math.isfinite(loss), f"single-operand epoch loss {loss}")
+    del ref_mlp, single, opt
+
+    mesh = make_mesh(1, world, device=dev)
+    gp_ag = None
+    for comm in ("all_gather", "halo"):
+        per_pass = 1 if comm == "all_gather" else 2  # K1 launches a SpMM pass: halo runs local + remote
+        sync()
+        t0 = time.perf_counter()
+        gp = make_graph_parallel(src, dst, None, num_nodes=n, mesh=mesh, block=BLOCK,
+                                 symmetrize=True, comm=comm, reorder="bfs")
+        sync()
+        r = {"build_s": time.perf_counter() - t0, "rows_per_shard": gp.rows_per_shard,
+             "reorder": gp.pg.reorder, "shard_edges": list(gp.pg.shard_edges),
+             "halo_quota": gp.pg.halo_quota, "halo_hubs": gp.pg.halo_hubs}
+        say(f"[parallel] W={world} comm={comm}: partition reorder={gp.pg.reorder} "
+            f"rows_per_shard={gp.rows_per_shard} shard_edges={gp.pg.shard_edges} halo "
+            f"q={gp.pg.halo_quota} qh={gp.pg.halo_hubs} built in {r['build_s']:.2f} s")
+
+        # the partitioned encode against the single operand's, same parameters
+        ref = Model(cfg, n, seed=seed, device=dev)
+        model = copy.deepcopy(ref).place_rows(gp)
+        zero()
+        h = model.encode(gp)
+        sync()
+        add(launches_ok("encode", {"K1": 2 * per_pass, "K1bf16": 0}))
+        h_ref = ref.encode(graph, graph_t)
+        with torch.no_grad():
+            for p in ref.parameters():
+                p.abs_()
+        h_abs = ref.encode(graph, graph_t)  # the terms' magnitudes (no cancellation)
+        tol = SUM_ATOL + SUM_RTOL * h_abs
+        ratio = float(((h - h_ref).abs() / tol).max())
+        r["encode_max_abs"] = float((h - h_ref).abs().max())
+        r["encode_err_over_tol"] = ratio
+        say(f"[parallel] {comm}: partitioned encode vs the single operand's: max_abs="
+            f"{r['encode_max_abs']:.3e} max err/tol={ratio:.3f} (tol {SUM_ATOL} + "
+            f"{SUM_RTOL}*sum|terms|)")
+        require(ratio <= 1.0, f"{comm}: partitioned encode differs from the single operand's")
+        del ref, h_ref, h_abs
+
+        # one epoch, a test and scoring
+        mlp = Model(mlp_cfg, n, seed=seed, device=dev).place_rows(gp)
+        opt = mlp.make_optimizer()
+        loss, r["epoch_s"] = epoch(mlp, opt, gp, None, mesh)
+        add(launches_ok("epoch", {"K1": 4 * per_pass * steps, "K1bf16": 0}))
+        require(math.isfinite(loss), f"{comm}: epoch loss {loss}")
+        r["loss"] = loss
+        r["step_ms"] = time_steps(mlp, opt, gp, None, mesh)
+        zero()
+        hits = mlp.test(gp, None, None, split, "hits", mesh=mesh)
+        sync()
+        add(launches_ok("test", {"K1": 2 * per_pass, "K1bf16": 0}))
+        require(all(0.0 <= v <= 1.0 for pair in hits.values() for v in pair), f"hits {hits}")
+        zero()
+        scores = Scorer(model, gp, mesh=mesh).score(pairs)
+        scores_mlp = Scorer(mlp, gp, mesh=mesh).score(pairs)
+        add(launches_ok("two scorers", {"K1": 4 * per_pass, "K1bf16": 0}))
+        require(scores.shape == (len(pairs),) and np.isfinite(scores).all(), "DOT scores")
+        require(scores_mlp.shape == (len(pairs),) and np.isfinite(scores_mlp).all(), "MLP scores")
+        r["hits"] = hits
+        say(f"[parallel] {comm}: epoch loss {loss:.4f} in {r['epoch_s']:.3f} s ({steps} steps, "
+            f"K1 {4 * per_pass} a step), step {r['step_ms']:.2f} ms; test {json.dumps(hits)}; "
+            f"score {len(pairs)} pairs finite (DOT, MLP)")
+        out["comm"][comm] = r
+        if comm == "all_gather":
+            gp_ag = gp
+        del model, mlp, opt, h
+        if cuda:
+            torch.cuda.empty_cache()
+
+    # one epoch in bf16: only K1-bf16 launches
+    bf = Model(dataclasses.replace(mlp_cfg, compute_dtype="bfloat16"), n, seed=seed,
+               device=dev).place_rows(gp_ag)
+    opt = bf.make_optimizer()
+    loss, out["bf16_epoch_s"] = epoch(bf, opt, gp_ag, None, mesh)
+    add(launches_ok("bf16 epoch", {"K1": 0, "K1bf16": 4 * steps}))
+    require(math.isfinite(loss), f"bf16 epoch loss {loss}")
+    require(all(p.dtype == torch.float32 for p in bf.parameters()), "bf16: parameters stay f32")
+    out["bf16_loss"] = loss
+    out["bf16_step_ms"] = time_steps(bf, opt, gp_ag, None, mesh)
+    say(f"[parallel] bf16 (all_gather): epoch loss {loss:.4f} in {out['bf16_epoch_s']:.3f} s, "
+        f"step {out['bf16_step_ms']:.2f} ms, only K1-bf16 launched")
+    del bf, opt
+
+    if world == 4:
+        # (data, node) = (2, 2): pair batches over 'data', the graph over 'node'
+        mesh22 = make_mesh(2, 2, device=dev)
+        gp22 = make_graph_parallel(src, dst, None, num_nodes=n, mesh=mesh22, block=BLOCK,
+                                   symmetrize=True, comm="all_gather", reorder="bfs")
+        m22 = Model(mlp_cfg, n, seed=seed, device=dev).place_rows(gp22)
+        loss, out["mesh22_epoch_s"] = epoch(m22, m22.make_optimizer(), gp22, None, mesh22)
+        require(math.isfinite(loss), f"(2, 2) epoch loss {loss}")
+        hits = m22.test(gp22, None, None, split, "hits", mesh=mesh22)
+        out["mesh22_loss"], out["mesh22_hits"] = loss, hits
+        say(f"[parallel] mesh (data=2, node=2): epoch loss {loss:.4f} in "
+            f"{out['mesh22_epoch_s']:.3f} s; test {json.dumps(hits)}")
+    return out
+
+
+def spawn_ranks(world: int, opts: dict, tmp: str) -> dict:
+    """Run ``_parallel_rank`` on ``world`` processes, one card each; rank
+    0's result.  Every process is joined or killed before this returns."""
+    import torch.multiprocessing as mp
+
+    out = os.path.join(tmp, f"parallel_w{world}.json")
+    ctx = mp.start_processes(_parallel_rank, args=(world, _free_port(), out, opts), nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            require(time.monotonic() < deadline, f"{world} ranks ran past {PARALLEL_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    with open(out) as f:
+        return json.load(f)
+
+
+def parallel_path(args, card, tmp):
+    """Phase 32: the partitioned path at collab's width on W ranks."""
+    import torch
+
+    world = min(torch.cuda.device_count(), MAX_RANKS)
+    log(f"[parallel] W={world} rank(s) over NCCL, one card each "
+        f"({torch.cuda.device_count()} card(s) here); card {card}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = spawn_ranks(world, {
+        "backend": "nccl", "seed": args.seed, "n_nodes": N_NODES, "n_edges": N_EDGES,
+        "width": WIDTH, "batch": BATCH, "pairs": CLI_PAIRS,
+    }, tmp)
+    log(f"[parallel] W={world}: single operand step {res['single_step_ms']:.2f} ms, epoch "
+        f"{res['single_epoch_s']:.3f} s; partitioned all_gather step "
+        f"{res['comm']['all_gather']['step_ms']:.2f} ms, epoch "
+        f"{res['comm']['all_gather']['epoch_s']:.3f} s, build "
+        f"{res['comm']['all_gather']['build_s']:.2f} s; halo step "
+        f"{res['comm']['halo']['step_ms']:.2f} ms, epoch {res['comm']['halo']['epoch_s']:.3f} s, "
+        f"build {res['comm']['halo']['build_s']:.2f} s; bf16 step {res['bf16_step_ms']:.2f} ms, "
+        f"epoch {res['bf16_epoch_s']:.3f} s; rank 0's K1 launches {res['launches']}; "
+        f"phase {time.perf_counter() - t0:.1f} s; card {card}")
+    return res
+
+
+def cli_torchrun_phase(args, world: int, tmp: str):
+    """Phase 33: the collab command through torchrun with --num_shards W
+    for one epoch (W = 1: one rank, the single-device operand)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    metrics = os.path.join(tmp, "torchrun.jsonl")
+    cmd = [
+        sys.executable, "-m", "torch.distributed.run", "--standalone",
+        f"--nproc_per_node={world}", "-m", "plnlp_tpu_torch", *collab_flags(args.seed),
+        "--num_shards", str(world), "--epochs", "1", "--metrics_file", metrics,
+    ]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH", "")) if p))
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True,
+                       timeout=PARALLEL_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    lines = [line for line in r.stdout.splitlines() if line.strip()]
+    for line in lines:
+        if line.startswith(("partition", "Run:", "Training Time")):
+            log(f"[torchrun] {line}")
+    require(r.returncode == 0,
+            f"torchrun exited {r.returncode}: {(r.stderr or r.stdout)[-2000:]}")
+    with open(metrics) as f:
+        rows = [json.loads(line) for line in f]
+    require(len(rows) == 1 and math.isfinite(rows[0]["loss"]), f"torchrun metrics {rows}")
+    if world > 1:
+        require(any(line.startswith(f"partition: S={world}") for line in lines),
+                "torchrun: no partition line")
+    log(f"[torchrun] --num_shards {world}: one epoch, loss {rows[0]['loss']:.4f}, epoch "
+        f"{rows[0]['epoch_seconds']:.3f} s, {seconds:.1f} s in all")
+    return rows[0]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2159,6 +2648,12 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = _build.build(_build.sources())
     log(f"[build] {sorted(_build.sources())} in {time.perf_counter() - t0:.2f} s")
+    from plnlp_tpu_torch import native
+
+    t0 = time.perf_counter()
+    require(native.available(), "the native host library builds (g++)")
+    log(f"[build] native host library csrc/graphcore.cpp (g++ -O3 -march=native -fopenmp) "
+        f"in {time.perf_counter() - t0:.2f} s")
     for name, text in reports.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
@@ -2365,16 +2860,23 @@ def main() -> int:
         torch.cuda.empty_cache()
         flash_bf16, tf_launches = transformer_bf16_path(args, dev, card, graph, graph_t, ds,
                                                         split, data, small, tmp)
+        native_phase(args, data)
+        del data, small
+        shard_k1_phase(graph, graph_t, src, dst, gen, card)
+        torch.cuda.empty_cache()
+        par = parallel_path(args, card, tmp)
+        cli_torchrun_phase(args, par["world"], tmp)
     for entry, kernel in zip(train_kernels, ("K2", "K3", "K4", "K5")):
         entry["launches"] += cli_launches[kernel]
-    bf16_kernels[0]["launches"] += tf_launches["K1bf16"]
+    bf16_kernels[0]["launches"] += tf_launches["K1bf16"] + par["launches"]["K1bf16"]
 
     kernels = [{
         "name": "scatter_matmul",
         "route": "cuda",
         "source": "plnlp_tpu_torch/csrc/scatter_matmul.cu",
         "replaces": "plnlp_tpu/ops/pallas_spmm.py:51",
-        "launches": launches + k1_train_launches + cli_launches["K1"] + tf_launches["K1"],
+        "launches": (launches + k1_train_launches + cli_launches["K1"] + tf_launches["K1"]
+                     + par["launches"]["K1"]),
         "max_abs_err": max_abs,
         "ms": ms,
         "plain_ms": plain_ms,

@@ -15,6 +15,15 @@ preemption, metrics and a profiler trace.  ``--score_pairs`` serves a
 checkpoint instead of training.
 
 Runs on ``cuda:<--device>``; library callers and tests pass ``device=``.
+``--num_shards S`` (the graph partitioned over S ranks, K1 on each) and
+``--mesh_data D`` (pair batches and evaluation split over D) run one
+process per card under torchrun, on ``cuda:<LOCAL_RANK>``:
+
+    torchrun --standalone --nproc_per_node=<S*D> -m plnlp_tpu_torch --num_shards S ...
+
+Only rank 0 logs, writes metrics and writes checkpoints (the whole
+embedding table in original node order, so a checkpoint resumes at any
+shard count).
 Randomness is positional: the parameter init of run r and the generators
 of its epoch e come from ``np.random.SeedSequence([seed, r, e])``, so a
 ``--resume`` continues with exactly the draws an uninterrupted run makes.
@@ -29,6 +38,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from plnlp_tpu_torch import default_device
 from plnlp_tpu_torch.augment import random_walk_pairs
@@ -192,13 +202,14 @@ def argument(argv=None):
                         "carries Adam moments across runs, model.py:85-96)")
     parser.add_argument(
         "--num_shards", type=int, default=0,
-        help="shard the graph over this many devices; 0/1 = single device "
-        "(> 1 is not ported yet: ROADMAP queue 1 item 11)",
+        help="shard the graph (rows and embedding table) over this many ranks "
+        "on the mesh's 'node' axis, one card each (launch with torchrun); "
+        "0/1 = single device",
     )
     parser.add_argument(
         "--mesh_data", type=int, default=1,
-        help="data-parallel mesh axis size (> 1 is not ported yet: ROADMAP "
-        "queue 1 item 11)",
+        help="size of the mesh's 'data' axis: pair batches and eval scoring "
+        "split over it; num_shards x mesh_data ranks in all",
     )
     parser.add_argument(
         "--partition_comm", type=str, default="auto",
@@ -207,7 +218,9 @@ def argument(argv=None):
     )
     parser.add_argument(
         "--comm_latency_rows", type=float, default=512.0,
-        help="multi-device wire constant (with --num_shards > 1)",
+        help="--partition_comm=auto's wire constant: per-collective latency in "
+        "equivalent row transfers.  The default is the JAX package's, set for "
+        "the TPU's interconnect; it is not calibrated for NCCL",
     )
     parser.add_argument(
         "--partition_reorder", type=str, default="auto",
@@ -373,18 +386,50 @@ def _relabel_split_edge(split_edge, node_relabel):
     return out
 
 
+def _world(args) -> int:
+    return max(args.num_shards, 1) * max(args.mesh_data, 1)
+
+
 def _device(args, device):
+    if device is None and _world(args) > 1:
+        # one card per rank: torchrun's local rank picks it
+        device = f"cuda:{os.environ.get('LOCAL_RANK', args.device)}"
     return default_device(f"cuda:{args.device}" if device is None else device)
 
 
-def _check_ported(args) -> None:
+def _check_ported(args, backend: Optional[str] = None) -> None:
     """Flag values that select code the port does not have yet raise, so
-    nothing else runs in their place: only the multi-device flags."""
-    if args.num_shards > 1 or args.mesh_data > 1:
+    nothing else runs in their place: the partition of TRANSFORMER and of
+    the hybrid operand (``backend``: what ``--adj_backend`` came out as)."""
+    if args.num_shards <= 1:
+        return
+    if args.encoder.upper() == "TRANSFORMER":
         raise NotImplementedError(
-            f"--num_shards {args.num_shards} / --mesh_data {args.mesh_data}: the "
-            "multi-device runtime is not ported yet (ROADMAP queue 1 item 11)"
+            f"--num_shards {args.num_shards} --encoder TRANSFORMER: the partitioned "
+            "TransformerConv is not ported yet (ROADMAP queue 1 item 11b)"
         )
+    if (backend or args.adj_backend) == "hybrid":
+        raise NotImplementedError(
+            f"--num_shards {args.num_shards} over the hybrid operand: the tiled "
+            "partition is not ported yet (ROADMAP queue 1 item 11b)"
+        )
+
+
+def _make_mesh(args, dev):
+    """The (mesh_data, num_shards) mesh, or None on one device; more ranks
+    need the process group torchrun sets up."""
+    world = _world(args)
+    if world == 1:
+        return None
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"--num_shards {args.num_shards} --mesh_data {args.mesh_data} runs {world} "
+            f"ranks, one card each: launch with torchrun --standalone "
+            f"--nproc_per_node={world} -m plnlp_tpu_torch <flags>"
+        )
+    from plnlp_tpu_torch.parallel import make_mesh
+
+    return make_mesh(data=max(args.mesh_data, 1), node=max(args.num_shards, 1), device=dev)
 
 
 def prepare_experiment(args, log=print, serving=False, device=None):
@@ -408,14 +453,21 @@ def prepare_experiment(args, log=print, serving=False, device=None):
         args.adj_backend == "auto" and num_nodes <= args.dense_threshold
     )
     _check_ported(args)
-    if args.block_rows == 0 and not use_dense and not serving:
+    mesh = _make_mesh(args, dev)
+    partitioned = args.num_shards > 1
+    if args.block_rows == 0 and (partitioned or not use_dense) and not serving:
         from plnlp_tpu_torch.tuning import autotune_block
 
-        args.block_rows, args.block_edges = autotune_block(
+        block = autotune_block(
             surg["adj_src"], surg["adj_dst"], surg["adj_weight"],
             num_nodes=num_nodes, dim=args.gnn_hidden_channels,
             block_edges=args.block_edges, dtype=args.compute_dtype, log=log, device=dev,
         )
+        if mesh is not None:
+            # the timings differ between ranks: every rank takes rank 0's choice
+            block = list(block)
+            dist.broadcast_object_list(block, src=0)
+        args.block_rows, args.block_edges = block
         log(f"autotuned block = ({args.block_rows}, {args.block_edges})")
     elif args.block_rows == 0:
         args.block_rows = 512
@@ -449,6 +501,7 @@ def prepare_experiment(args, log=print, serving=False, device=None):
                 f"({est['num_tiles']} tiles at T={args.tile_size}"
                 f"/min_fill={args.tile_min_fill}, threshold {thr:.0%}) -> {backend}"
             )
+            _check_ported(args, backend)
     if serving:
         # The model's rows are in the trained run's id space.  The JAX CLI
         # re-derives the order instead, which differs from the trained
@@ -484,7 +537,27 @@ def prepare_experiment(args, log=print, serving=False, device=None):
 
     adj = (surg["adj_src"], surg["adj_dst"], surg["adj_weight"])
     graph_t = None
-    if use_dense:
+    if partitioned:
+        # the partitioned operand whatever --adj_backend says (as the JAX
+        # CLI): destination rows and the embedding table over the 'node' ranks
+        from plnlp_tpu_torch.parallel import make_graph_parallel
+
+        t0 = time.perf_counter()
+        graph = make_graph_parallel(
+            *adj, num_nodes=num_nodes, mesh=mesh, block=block,
+            comm=args.partition_comm, latency_rows=args.comm_latency_rows,
+            reorder=args.partition_reorder, log=log,
+        )
+        pg = graph.pg
+        log(
+            f"partition: S={pg.num_shards} reorder={pg.reorder} comm={graph.comm} "
+            f"rows_per_shard={pg.rows_per_shard} shard_edges={pg.shard_edges} "
+            f"shard_nblk={pg.shard_nblk}"
+            + (f" halo_quota={pg.halo_quota} halo_hubs={pg.halo_hubs}"
+               if graph.comm == "halo" else "")
+            + f" (built in {time.perf_counter() - t0:.2f} s)"
+        )
+    elif use_dense:
         graph = prepare_dense(*adj, num_nodes=num_nodes, device=dev)
     elif backend == "hybrid":
         from plnlp_tpu_torch.ops.tile_spmm import build_hybrid
@@ -508,7 +581,7 @@ def prepare_experiment(args, log=print, serving=False, device=None):
             *adj, num_nodes=num_nodes, block=block, device=dev,
             couple_transpose=args.encoder.upper() == "TRANSFORMER",
         )
-    if (use_dense or backend == "hybrid") and not serving:
+    if (partitioned or use_dense or backend == "hybrid") and not serving:
         # the CSR twin for the negative sampler's exclusion and the walks
         sample_graph, _ = prepare_graph(*adj, num_nodes=num_nodes, block=None, device=dev)
     else:
@@ -551,6 +624,10 @@ def prepare_experiment(args, log=print, serving=False, device=None):
         cfg, num_nodes, num_node_feats, pretrain_emb,
         seed=_seeds(args.seed, 0, 0)[0], device=dev,
     )
+    if partitioned:
+        from plnlp_tpu_torch.parallel import shard_params
+
+        shard_params(model, graph)  # this rank's rows of the table
 
     eval_edges = None
     if not serving:
@@ -577,6 +654,7 @@ def prepare_experiment(args, log=print, serving=False, device=None):
         # old id -> slot id, or None; serving translates user ids through it
         "node_relabel": node_relabel,
         "order": order,
+        "mesh": mesh,
     }
 
 
@@ -619,8 +697,18 @@ def run_experiment(args, log=print, device=None):
     --resume continues; see ``resilience.PreemptionGuard``."""
     from plnlp_tpu_torch.resilience import PreemptionGuard
 
+    if _rank() != 0:
+        log = _quiet  # only rank 0 logs
     with PreemptionGuard() as guard:
         return _run_experiment(args, log, guard, device)
+
+
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _quiet(*_args, **_kw) -> None:
+    pass
 
 
 def _run_experiment(args, log, guard, device):
@@ -632,9 +720,13 @@ def _run_experiment(args, log, guard, device):
     )
     from plnlp_tpu_torch.resilience import Preempted
 
+    from plnlp_tpu_torch.parallel.sharded import full_state, load_full_state
+
     exp = prepare_experiment(args, log=log, device=device)
     model: Model = exp["model"]
     dev = exp["device"]
+    mesh = exp["mesh"]
+    rank0 = _rank() == 0
     graph, graph_t = exp["graph"], exp["graph_t"]
     sample_graph = exp["sample_graph"]
     node_feats = exp["node_feats"]
@@ -654,7 +746,7 @@ def _run_experiment(args, log, guard, device):
         )
 
     log_file = None
-    if args.res_dir:
+    if args.res_dir and rank0:
         os.makedirs(args.res_dir, exist_ok=True)
         log_file = os.path.join(args.res_dir, f"log_{args.data_name}_{int(time.time())}.txt")
         with open(log_file, "a") as f:
@@ -689,16 +781,21 @@ def _run_experiment(args, log, guard, device):
     emit(f"Total number of model parameters is {sum(p.numel() for p in model.parameters())}")
 
     meter = ThroughputMeter(sample_graph.num_edges, args.gnn_num_layers, args.batch_size)
-    metrics = MetricsWriter(args.metrics_file or None)
+    metrics = MetricsWriter((args.metrics_file or None) if rank0 else None)
 
     ckpt_mgr = None
     start_run, start_epoch = 0, 1
 
     def save_ckpt(run, epoch):
+        # the whole table in original node order (a collective over the node
+        # group when it is sharded); rank 0 writes
+        model_state, opt_state = full_state(model, opt)
+        if not rank0:
+            return
         ckpt_mgr.save(
             run * args.epochs + epoch,
-            model.state_dict(),
-            opt.state_dict(),
+            model_state,
+            opt_state,
             {
                 "run": run,
                 "epoch": epoch,
@@ -710,14 +807,14 @@ def _run_experiment(args, log, guard, device):
         from plnlp_tpu_torch.checkpoint import CheckpointManager
 
         ckpt_mgr = CheckpointManager(args.checkpoint_dir)
-        _save_order(args.checkpoint_dir, exp["order"])
+        if rank0:
+            _save_order(args.checkpoint_dir, exp["order"])
         if args.resume and ckpt_mgr.latest_step() is not None:
             # read to the host: load_state_dict copies onto the parameters'
             # device, and the optimizer keeps its step counts on the host
-            # as a fresh one does
+            # as a fresh one does; a sharded table takes this rank's rows
             model_state, opt_state, extra = ckpt_mgr.restore(device="cpu")
-            model.load_state_dict(model_state)
-            opt.load_state_dict(opt_state)
+            load_full_state(model, opt, model_state, opt_state)
             if extra:
                 start_run = int(extra.get("run", 0))
                 start_epoch = int(extra.get("epoch", 0)) + 1
@@ -749,12 +846,12 @@ def _run_experiment(args, log, guard, device):
                 )
             else:
                 pos, weights, pos_mask = base_pos, base_weights, None
-            profiled = bool(args.profile_dir) and run == 0 and epoch == 2
+            profiled = bool(args.profile_dir) and run == 0 and epoch == 2 and rank0
             meter.start()
             with profile_trace(args.profile_dir if profiled else None):
                 loss = model.train_epoch(
                     opt, graph, graph_t, node_feats, pos, weights, gen, cur_lr,
-                    sample_graph=sample_graph, pos_mask=pos_mask,
+                    sample_graph=sample_graph, pos_mask=pos_mask, mesh=mesh,
                 )
             epoch_s = meter.stop(pos.shape[0])
             if profiled:
@@ -773,7 +870,8 @@ def _run_experiment(args, log, guard, device):
                 pairs_per_sec=meter.last_pairs_per_sec,
             )
             if epoch % args.eval_steps == 0:
-                results = model.test(graph, graph_t, node_feats, exp["eval_edges"], eval_metric)
+                results = model.test(graph, graph_t, node_feats, exp["eval_edges"], eval_metric,
+                                     mesh=mesh)
                 for k, res in results.items():
                     loggers[k].add_result(run, res)
                 if epoch % args.log_steps == 0:
@@ -813,6 +911,8 @@ def _run_experiment(args, log, guard, device):
                     )
                 raise Preempted(run, epoch)
         for k in loggers:
+            if not rank0:
+                break
             emit(k)
             loggers[k].print_statistics(run, last_best=args.eval_last_best)
             if log_file:
@@ -820,6 +920,8 @@ def _run_experiment(args, log, guard, device):
                     loggers[k].print_statistics(run, f=f, last_best=args.eval_last_best)
 
     for k in loggers:
+        if not rank0:
+            break
         emit(k)
         loggers[k].print_statistics(last_best=args.eval_last_best)
         if log_file:
@@ -835,9 +937,12 @@ def run_scoring(args, log=print, device=None):
         raise SystemExit("--score_pairs needs --checkpoint_dir")
     from plnlp_tpu_torch.serve import Scorer
 
+    if _rank() != 0:
+        log = _quiet
     exp = prepare_experiment(args, log=log, serving=True, device=device)
     sc = Scorer.from_checkpoint(
-        exp["model"], args.checkpoint_dir, exp["graph"], exp["graph_t"], exp["node_feats"]
+        exp["model"], args.checkpoint_dir, exp["graph"], exp["graph_t"], exp["node_feats"],
+        mesh=exp["mesh"],
     )
     pairs = np.load(args.score_pairs)
     if exp["node_relabel"] is not None:
@@ -845,14 +950,20 @@ def run_scoring(args, log=print, device=None):
         # ids.  Scores come back in input order, so nothing maps back.
         pairs = exp["node_relabel"][np.asarray(pairs)]
     scores = sc.score(pairs)
-    np.save(args.score_out, scores)
+    if _rank() == 0:
+        np.save(args.score_out, scores)
     log(f"scored {len(pairs)} pairs -> {args.score_out}")
     return scores
 
 
 def main(argv=None):
     args = argument(argv)
-    print(args)
+    if _world(args) > 1 and "RANK" in os.environ:
+        from plnlp_tpu_torch.parallel import multihost
+
+        multihost.init()  # NCCL on cuda:<LOCAL_RANK>
+    if _rank() == 0:
+        print(args)
     if args.score_pairs:
         return run_scoring(args)
     if args.max_restarts > 0:

@@ -5,6 +5,9 @@ The JAX side stores each dense layer as ``{"w": (in, out), "b": (out,)}``;
 Module and attribute names mirror the pytree keys (``emb``,
 ``encoder.layers[i].lin_l``, ``predictor.lins[i]``, ``predictor.bilin``),
 so the walk is by name.  Every parameter of the model must be covered.
+A model whose table is row-sharded (``Model.place_rows``) takes its rows of
+the whole JAX table, and gives the whole table back (a collective over the
+mesh's node group).
 
 Usage: ``params_from_jax(jax.tree_util.tree_map(np.asarray, params), model)``;
 ``params_to_jax(model)`` gives the model's parameters back as a numpy tree
@@ -57,6 +60,12 @@ def params_from_jax(np_tree, model: nn.Module) -> nn.Module:
     loaded: set = set()
     for key, sub in np_tree.items():
         if key == "emb":
+            if getattr(model, "row_placement", None) is not None:
+                # the whole table in: this rank takes its slot rows
+                from plnlp_tpu_torch.parallel.graph_parallel import shard_node_features
+
+                sub = shard_node_features(torch.from_numpy(np.array(sub, np.float32)),
+                                          model.row_placement).numpy()
             _copy(model.emb, sub, "emb", loaded)
         else:
             _load(getattr(model, key), sub, key, loaded)
@@ -83,5 +92,11 @@ def params_to_jax(model: nn.Module) -> dict:
     (``emb``, ``encoder.layers[i]``, ``predictor``; weights ``(in, out)``)."""
     tree = {"encoder": _dump(model.encoder), "predictor": _dump(model.predictor)}
     if model.emb is not None:
-        tree["emb"] = model.emb.detach().cpu().numpy().copy()
+        emb = model.emb.detach()
+        if getattr(model, "row_placement", None) is not None:
+            # collective: the whole table from every rank's rows
+            from plnlp_tpu_torch.parallel.graph_parallel import gather_node_features
+
+            emb = gather_node_features(emb, model.row_placement)
+        tree["emb"] = emb.cpu().numpy().copy()
     return tree

@@ -40,10 +40,21 @@ class DenseAdj:
 
 
 def _dense_np(csr) -> Tuple[np.ndarray, np.ndarray]:
-    """(adj, in_degrees) on the host.  One ``bincount`` over the flat cell
-    index: after coalescing each cell takes one edge, so the float64 sum
-    is that edge's float32 weight exactly (``np.add.at``, which the JAX
-    package falls back to, takes ~40 s at 2M edges)."""
+    """(adj, in_degrees) on the host: the native library's ``densify`` when
+    it is available, the NumPy version otherwise (the same bits)."""
+    from plnlp_tpu_torch import native
+
+    if native.available():
+        return native.densify(csr["senders"], csr["receivers"], csr["edge_weight"],
+                              csr["num_nodes"])
+    return _dense_plain(csr)
+
+
+def _dense_plain(csr) -> Tuple[np.ndarray, np.ndarray]:
+    """NumPy version of :func:`_dense_np`.  One ``bincount`` over the flat
+    cell index: each cell's weights summed in float64 in edge order, then
+    rounded to float32 once (``np.add.at``, which the JAX package falls
+    back to, takes ~40 s at 2M edges)."""
     n = csr["num_nodes"]
     recv = csr["receivers"].astype(np.int64)
     send = csr["senders"].astype(np.int64)

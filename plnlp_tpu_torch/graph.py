@@ -100,7 +100,19 @@ def coalesce_edges(
     num_nodes: int,
     reduce: str = "add",
 ) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
-    """Sort edges by (dst, src) and merge duplicates (reduce: add|max|min|mean)."""
+    """Sort edges by (dst, src) and merge duplicates (reduce: add|max|min|mean).
+    ``add`` runs in the native library when it is available (the same
+    bits: ``native.coalesce_add``), the NumPy version otherwise."""
+    from plnlp_tpu_torch import native
+
+    if reduce == "add" and native.available():
+        return native.coalesce_add(src, dst, weight, num_nodes)
+    return _coalesce_plain(src, dst, weight, num_nodes, reduce)
+
+
+def _coalesce_plain(src, dst, weight, num_nodes: int, reduce: str = "add"):
+    """NumPy version of :func:`coalesce_edges`: float64 sums in stable
+    (dst, src) order, rounded to float32 once."""
     src = np.asarray(src).astype(np.int64)
     dst = np.asarray(dst).astype(np.int64)
     key = dst * int(num_nodes) + src
@@ -186,6 +198,17 @@ def row_normalize_edges(src, dst, weight, num_nodes: int):
 # ---------------------------------------------------------------------------
 
 
+def _undirected_csr_np(src, dst, num_nodes: int):
+    """(indptr, indices) over the undirected edge set (host-side)."""
+    s2 = np.concatenate([src, dst])
+    d2 = np.concatenate([dst, src])
+    order_e = np.argsort(s2, kind="stable")
+    s2, d2 = s2[order_e], d2[order_e]
+    indptr = np.zeros(num_nodes + 1, np.int64)
+    indptr[1:] = np.cumsum(np.bincount(s2, minlength=num_nodes))
+    return indptr, d2
+
+
 def _pad_to(n: int, multiple: int) -> int:
     """``n`` rounded up to a multiple of ``multiple``."""
     return ((n + multiple - 1) // multiple) * multiple
@@ -226,7 +249,20 @@ def _blocks_np(csr, block_rows: int, block_edges: int):
     """Blocked metadata: edges grouped by destination row-block
     ``dst // R``, each group cut into sub-blocks of ``B`` edges
     (weight-0 padded).  Every row-block gets at least one sub-block, so
-    the metadata names every output row-block."""
+    the metadata names every output row-block.  Runs in the native library
+    when it is available (``native.blocks_build``, the same arrays)."""
+    from plnlp_tpu_torch import native
+
+    if native.available():
+        return native.blocks_build(
+            csr["senders"], csr["receivers"], csr["edge_weight"], csr["indptr"],
+            csr["num_nodes"], int(block_rows), int(block_edges),
+        )
+    return _blocks_plain(csr, block_rows, block_edges)
+
+
+def _blocks_plain(csr, block_rows: int, block_edges: int):
+    """NumPy version of :func:`_blocks_np`."""
     R, B = int(block_rows), int(block_edges)
     n = csr["num_nodes"]
     e = csr["num_edges"]

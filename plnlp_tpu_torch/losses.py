@@ -24,6 +24,7 @@ __all__ = [
     "info_nce_loss",
     "calculate_loss",
     "LOSS_NAMES",
+    "MEAN_LOSSES",
 ]
 
 _EPS = 1e-15
@@ -150,6 +151,11 @@ LOSS_NAMES = (
     "InfoNCE",
     "StableInfoNCE",
 )
+
+# The losses that are means over the batch; the rest are sums.  Under a
+# mesh a rank's share of a mean loss is rescaled to the global count of
+# valid pairs (``Model.train_step``), so a new mean loss belongs here.
+MEAN_LOSSES = frozenset({"LogRank", "CE", "InfoNCE", "StableInfoNCE"})
 
 _MARGIN_LOSSES = {
     "AdaAUC": adaptive_auc_loss,

@@ -79,8 +79,8 @@ def _transformer_conv(lp, graph, graph_t, x):
         return hybrid_transformer_conv(lp, graph, x)
     if not isinstance(graph, (Graph, DenseAdj)):
         raise NotImplementedError(
-            f"TRANSFORMER over {type(graph).__name__} is not ported yet "
-            "(GraphParallel: ROADMAP queue 1 item 11, multi-device runtime)"
+            f"TRANSFORMER over {type(graph).__name__} is not ported yet (the "
+            "partitioned TransformerConv: ROADMAP queue 1 item 11b)"
         )
     if (
         isinstance(graph, Graph) and graph.blk_src is not None and graph.tconv_map is not None

@@ -7,6 +7,8 @@
   same kernel over the transposed graph backward (dX = Aᵀ dY).
 * a :class:`~plnlp_tpu_torch.ops.tile_spmm.HybridGraph` goes to
   ``hybrid_spmm`` (dense tiles + blocked residual, ``ops/tile_spmm.py``).
+* a ``GraphParallel`` goes to ``parallel.graph_parallel.partitioned_spmm``
+  (K1 on this rank's shard after the feature exchange);
 * a :class:`~plnlp_tpu_torch.dense.DenseAdj` goes to :func:`spmm_dense`,
   one ``torch.matmul`` (the JAX package's ``jnp.dot``, outside Pallas).
 
@@ -116,17 +118,19 @@ def spmm_blocked(
 def spmm(graph, x: torch.Tensor, reduce: str = "sum", graph_t=None) -> torch.Tensor:
     """Aggregate ``x`` over ``graph``: the dense matmul for a ``DenseAdj``,
     the hybrid operator for a ``HybridGraph`` (which carries its own
-    transpose), the blocked kernel path when the graph carries blocked
+    transpose), the partitioned SpMM for a ``GraphParallel`` (``x`` is this
+    rank's rows), the blocked kernel path when the graph carries blocked
     metadata, the segment path otherwise."""
     if isinstance(graph, DenseAdj):
         return spmm_dense(graph, x, reduce)
     if isinstance(graph, HybridGraph):
         return hybrid_spmm(graph, x, reduce)
+    from plnlp_tpu_torch.parallel.graph_parallel import GraphParallel, partitioned_spmm
+
+    if isinstance(graph, GraphParallel):
+        return partitioned_spmm(graph, x, reduce)
     if not isinstance(graph, Graph):
-        raise NotImplementedError(
-            f"{type(graph).__name__} operands are not ported yet: GraphParallel "
-            "waits for ROADMAP queue 1 item 11 (multi-device runtime)"
-        )
+        raise TypeError(f"unknown aggregation operand: {type(graph).__name__}")
     if graph.blk_src is not None:
         return spmm_blocked(graph, graph_t, x, reduce)
     return spmm_segment(graph, x, reduce)

@@ -12,9 +12,9 @@ which reads the x tile as one contiguous block; tiles with fewer than
 * Host build, in NumPy (copied from the JAX package): ``label_prop_order``,
   ``multilevel_order``, ``estimate_hybrid`` and ``build_hybrid``, with the
   int8 tile store when exact (else the compute dtype), the
-  ``max_tile_bytes`` guard and the zero-tile case.  Only the NumPy
-  label-prop sweep is ported; it gives the same labels as the JAX
-  package's native one.
+  ``max_tile_bytes`` guard and the zero-tile case.  The label-prop sweep
+  runs in the native library (``native.label_prop``) when it is
+  available, else in NumPy; both give the same labels.
 * The operator, :class:`HybridSpmm`: the forward is the tile kernel K2
   (``ops/tile_matmul.py``) over ``tile_vals`` plus the blocked kernel K1
   over ``res_graph``; the backward (dX = Aᵀ dY) is K2 over the transposed
@@ -36,7 +36,14 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from plnlp_tpu_torch.graph import Graph, _blocks_np, _csr_np, _pad_to, _to_graph
+from plnlp_tpu_torch.graph import (
+    Graph,
+    _blocks_np,
+    _csr_np,
+    _pad_to,
+    _to_graph,
+    _undirected_csr_np,
+)
 from plnlp_tpu_torch.nn import COMPUTE_DTYPES
 from plnlp_tpu_torch.ops.scatter_matmul import scatter_matmul
 from plnlp_tpu_torch.ops.tile_matmul import tile_matmul
@@ -86,6 +93,20 @@ def _weighted_label_prop(ws, wd, ww, num_nodes, rounds):
 
 
 def _label_prop_labels(src, dst, num_nodes: int, rounds: int) -> np.ndarray:
+    """Final label-prop labels: the native sweep when the library is
+    available (``native.label_prop``, the same labels), NumPy otherwise."""
+    from plnlp_tpu_torch import native
+
+    if native.available():
+        indptr, indices = _undirected_csr_np(
+            np.asarray(src, np.int64), np.asarray(dst, np.int64), num_nodes
+        )
+        return native.label_prop(indptr, indices, num_nodes, rounds)
+    return _label_prop_plain(src, dst, num_nodes, rounds)
+
+
+def _label_prop_plain(src, dst, num_nodes: int, rounds: int) -> np.ndarray:
+    """NumPy version of :func:`_label_prop_labels`."""
     s2 = np.concatenate([src, dst]).astype(np.int64)
     d2 = np.concatenate([dst, src]).astype(np.int64)
     return _weighted_label_prop(s2, d2, np.ones(len(s2), np.int64), num_nodes, rounds)

@@ -2,6 +2,8 @@
 
 The full-graph encode runs once when the :class:`Scorer` is built; queries
 after it are chunked predictor calls on the cached node representations.
+``mesh`` splits query scoring over its data axis, as evaluation does; over
+a ``GraphParallel`` every rank encodes its rows and holds the gathered h.
 """
 
 from __future__ import annotations
@@ -29,8 +31,10 @@ class Scorer:
     ``graph``/``graph_t``/``node_feats`` must match what the model was
     trained with.  ``exclude_edges=True`` filters out the edges of
     ``exclude_graph``, a CSR :class:`Graph` or a ``DenseAdj`` that defaults
-    to ``graph``; over a ``HybridGraph`` pass its CSR twin (the sampler's
-    graph).
+    to ``graph``; over a ``HybridGraph`` or a ``GraphParallel`` pass the
+    replicated CSR twin (the sampler's graph).  ``mesh`` (collective: every
+    rank calls) splits ``score`` and the pairwise ranking over its data
+    axis.
     """
 
     # Upper bound on the S×C pair grid scored per pass (sources are chunked
@@ -38,8 +42,9 @@ class Scorer:
     _MAX_GRID_PAIRS = 8 * 1024 * 1024
 
     def __init__(self, model: Model, graph, graph_t=None, node_feats=None,
-                 exclude_graph: Optional[Graph] = None):
+                 exclude_graph: Optional[Graph] = None, mesh=None):
         self.model = model
+        self.mesh = mesh
         self.exclude_graph = exclude_graph if exclude_graph is not None else graph
         self.h = model.encode(graph, graph_t, node_feats)
 
@@ -53,19 +58,22 @@ class Scorer:
         node_feats=None,
         step: Optional[int] = None,
         exclude_graph=None,
+        mesh=None,
     ) -> "Scorer":
         """Load the latest (or ``step``) checkpoint the trainer saved (the
-        CLI's ``--checkpoint_dir``) into ``model`` and build a scorer."""
+        CLI's ``--checkpoint_dir``) into ``model`` (a row-sharded table takes
+        this rank's rows) and build a scorer."""
         from plnlp_tpu_torch.checkpoint import CheckpointManager
+        from plnlp_tpu_torch.parallel.sharded import load_full_state
 
         state, _, _ = CheckpointManager(checkpoint_dir).restore(step, device=model.device)
-        model.load_state_dict(state)
-        return cls(model, graph, graph_t, node_feats, exclude_graph=exclude_graph)
+        load_full_state(model, None, state)
+        return cls(model, graph, graph_t, node_feats, exclude_graph=exclude_graph, mesh=mesh)
 
     def score(self, pairs) -> np.ndarray:
         """Scores for (M, 2) int node pairs; -1 = unseen-node mean row."""
         pairs = torch.as_tensor(np.asarray(pairs, np.int64), device=self.h.device)
-        return self.model.batch_predict(self.h, pairs).cpu().numpy()
+        return self.model.batch_predict(self.h, pairs, mesh=self.mesh).cpu().numpy()
 
     def rank_candidates(
         self,
@@ -103,7 +111,7 @@ class Scorer:
             raise ValueError(
                 f"exclude_edges needs a CSR Graph or a DenseAdj to read known edges "
                 f"from; got {type(g).__name__}: pass exclude_graph= to Scorer (e.g. "
-                f"the CSR twin of a HybridGraph)"
+                f"the CSR twin of a HybridGraph or a GraphParallel)"
             )
         cand_pos = None
         if not identity:
@@ -143,7 +151,8 @@ class Scorer:
 
         Factorizable predictors (DOT/BIL/MLPDOT/MLPBIL) transform the
         candidates once and score each chunk with one matmul; MLP/MLPCAT
-        score the explicit pair grid.
+        score the explicit pair grid, and so does every predictor under a
+        mesh with a data axis (the grid's pairs split over it).
         """
         dev = self.h.device
         srcs = np.asarray(srcs, np.int64).reshape(-1)
@@ -156,7 +165,8 @@ class Scorer:
         cand_d = torch.as_tensor(candidates, device=dev)
         per = max(1, self._MAX_GRID_PAIRS // max(c, 1))
         pred = self.model.predictor
-        factorized = grid_factorizable(pred.name)
+        data_sharded = self.mesh is not None and self.mesh.data > 1
+        factorized = grid_factorizable(pred.name) and not data_sharded
         ids_out, scores_out = [], []
         with torch.no_grad():
             right = grid_transform_right(pred, self.h[cand_d]) if factorized else None
@@ -169,7 +179,7 @@ class Scorer:
                     pairs = torch.stack(
                         [srcs_d.repeat_interleave(c), cand_d.repeat(sc)], dim=1
                     )
-                    scores = self.model.batch_predict(self.h, pairs).reshape(sc, c)
+                    scores = self.model.batch_predict(self.h, pairs, mesh=self.mesh).reshape(sc, c)
                 scores = scores.float()
                 if mask is not None:
                     scores = mask(srcs_d, scores)

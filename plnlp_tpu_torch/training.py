@@ -19,6 +19,17 @@ the predictor, with the JAX package's input-layer sizing.
   float32, the loss is taken in float32, and ``encode`` casts h to float32,
   so evaluation, serving and ranking score in float32, as the JAX package
   does.
+* Under a mesh (``parallel/``): over a ``GraphParallel`` the model holds
+  only this rank's slot rows of the embedding table (``place_rows``) and
+  the encoder runs on them; its output is gathered into original node
+  order for the predictor.  ``train_step(mesh=)`` takes the global pair
+  batch and trains on this rank's share of it (split over the whole
+  world), with its loss a distinct share of the global loss, so the
+  gradients summed over the ranks that hold each parameter
+  (``parallel/sharded.reduce_gradients``) are the single-device ones.
+  Every rank draws the same negatives and shuffle from the same seed.
+  ``batch_predict``/``test`` with ``mesh`` split pair chunks over the data
+  axis with the full h on every rank.
 """
 
 from __future__ import annotations
@@ -32,11 +43,17 @@ import torch
 from torch import nn
 
 from plnlp_tpu_torch import default_device
-from plnlp_tpu_torch.losses import calculate_loss
+from plnlp_tpu_torch.losses import MEAN_LOSSES, calculate_loss
 from plnlp_tpu_torch.metrics import evaluate_hits, evaluate_mrr
 from plnlp_tpu_torch.models import Encoder, Predictor
 from plnlp_tpu_torch.nn import COMPUTE_DTYPES, xavier_uniform
 from plnlp_tpu_torch.ops.tile_spmm import HybridGraph
+from plnlp_tpu_torch.parallel.graph_parallel import (
+    GraphParallel,
+    gather_node_features,
+    shard_node_features,
+)
+from plnlp_tpu_torch.parallel.mesh import Mesh, gather_rows, shard_batch
 from plnlp_tpu_torch.sampling import (
     global_neg_sample,
     global_perm_neg_sample,
@@ -44,7 +61,6 @@ from plnlp_tpu_torch.sampling import (
 )
 
 __all__ = ["ModelConfig", "Model", "adjust_lr"]
-
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -128,6 +144,8 @@ class Model(nn.Module):
         self.emb_dim = emb_dim
         self.input_dim = input_dim
         self.emb_trainable = self.use_emb and not self.use_pretrained
+        # the GraphParallel whose slot rows of the table this rank holds
+        self.row_placement: Optional[GraphParallel] = None
         self.init_params(seed, default_device(device))
 
     @property
@@ -147,6 +165,8 @@ class Model(nn.Module):
                 table = torch.as_tensor(np.asarray(self.pretrain_emb, np.float32))
             else:
                 table = xavier_uniform(gen, (self.num_nodes, self.emb_dim))
+            if self.row_placement is not None:
+                table = shard_node_features(table, self.row_placement)
             self.emb = nn.Parameter(table, requires_grad=self.emb_trainable)
         self.encoder = Encoder(
             gen, cfg.encoder, self.input_dim, cfg.gnn_hidden_channels, cfg.gnn_num_layers
@@ -155,6 +175,48 @@ class Model(nn.Module):
             gen, cfg.predictor, cfg.mlp_hidden_channels, cfg.mlp_num_layers
         )
         return self.to(device)
+
+    def place_rows(self, gp: GraphParallel) -> "Model":
+        """Keep only this rank's slot rows of the embedding table (drawn
+        whole, so every shard count starts from the same table); the
+        optimizer is made after this.  ``init_params`` keeps the
+        placement."""
+        if self.row_placement is not None:
+            raise ValueError("the table is already row-sharded")
+        self.row_placement = gp
+        if self.emb is not None:
+            self.emb = nn.Parameter(
+                shard_node_features(self.emb.detach(), gp).contiguous(),
+                requires_grad=self.emb_trainable,
+            )
+        return self
+
+    def _check_operand(self, graph) -> None:
+        if isinstance(graph, GraphParallel) and graph is not self.row_placement:
+            raise ValueError(
+                "over a GraphParallel the model holds this rank's rows: call "
+                "parallel.shard_params(model, graph) (Model.place_rows) first"
+            )
+
+    def _resolve_mesh(self, graph, mesh):
+        """The mesh of this call: the one given, else the GraphParallel's;
+        it must describe the process group's world."""
+        if mesh is None:
+            mesh = graph.mesh if isinstance(graph, GraphParallel) else None
+        elif isinstance(graph, GraphParallel) and graph.mesh is not mesh:
+            raise ValueError("mesh= differs from the GraphParallel operand's mesh")
+        if mesh is not None:
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a parallel.Mesh, got {type(mesh).__name__}")
+            mesh.check()
+        return mesh
+
+    def _node_rows(self, graph, graph_t, x, **kw) -> torch.Tensor:
+        """The encoder's output in original node order (N, D): over a
+        GraphParallel this rank's rows are encoded and gathered."""
+        self._check_operand(graph)
+        h = self.encoder(graph, x, graph_t, **kw)
+        return gather_node_features(h, graph) if isinstance(graph, GraphParallel) else h
 
     # -- training -----------------------------------------------------------
 
@@ -178,8 +240,8 @@ class Model(nn.Module):
         encode and ONE predictor call over pos ⊕ neg pairs in the compute
         dtype; the loss in f32."""
         cfg = self.cfg
-        h = self.encoder(
-            graph, self._input_feat(node_feats).to(self.compute_dtype), graph_t,
+        h = self._node_rows(
+            graph, graph_t, self._input_feat(node_feats).to(self.compute_dtype),
             dropout=cfg.dropout, train=True, gen=gen, remat=cfg.remat,
         )
         b = pos.shape[0]
@@ -193,15 +255,28 @@ class Model(nn.Module):
         )
 
     def train_step(
-        self, opt, graph, graph_t, node_feats, pos, neg, margin, mask, lr: float, gen=None
+        self, opt, graph, graph_t, node_feats, pos, neg, margin, mask, lr: float, gen=None,
+        mesh=None,
     ) -> torch.Tensor:
         """One optimizer step on one pair batch; returns the (detached) loss.
         The encoder and predictor gradients are clipped each to global norm
         ``grad_clip_norm`` (the embedding is not clipped), as the reference
-        does."""
+        does.  With a mesh of more than one rank the batch is the global one:
+        this rank trains on its share, and the loss returned is the global
+        loss on every rank."""
+        mesh = self._resolve_mesh(graph, mesh)
         opt.zero_grad(set_to_none=True)
-        loss = self.loss(graph, graph_t, node_feats, pos, neg, margin, mask, gen)
-        loss.backward()
+        if mesh is None or mesh.world_size == 1:
+            loss = self.loss(graph, graph_t, node_feats, pos, neg, margin, mask, gen)
+            loss.backward()
+        else:
+            loss = self._loss_share(mesh, graph, graph_t, node_feats, pos, neg, margin, mask, gen)
+            loss.backward()
+            from plnlp_tpu_torch.parallel.sharded import reduce_gradients
+
+            reduce_gradients(self, mesh)
+            loss = loss.detach()
+            torch.distributed.all_reduce(loss)
         if self.cfg.grad_clip_norm >= 0:
             for group in (self.encoder, self.predictor):
                 _clip_group(list(group.parameters()), self.cfg.grad_clip_norm)
@@ -210,6 +285,19 @@ class Model(nn.Module):
         opt.step()
         return loss.detach()
 
+    def _loss_share(self, mesh, graph, graph_t, node_feats, pos, neg, margin, mask, gen):
+        """This rank's share of the global batch's loss: its slice of the
+        batch (split over the world); a mean loss is rescaled from its own
+        count of valid pairs to the global count."""
+        if mask is None:
+            mask = torch.ones(pos.shape[0], device=pos.device)
+        pos_r, neg_r, mask_r = shard_batch((pos, neg, mask), mesh)
+        margin_r = None if margin is None else shard_batch(margin, mesh)
+        loss = self.loss(graph, graph_t, node_feats, pos_r, neg_r, margin_r, mask_r, gen)
+        if self.cfg.loss_func in MEAN_LOSSES:
+            loss = loss * (mask_r.sum().clamp(min=1.0) / mask.sum().clamp(min=1.0))
+        return loss
+
     def sample_negatives(self, gen: torch.Generator, graph, pos_edges: torch.Tensor):
         """(P, num_neg, 2) negatives by sampler name; any name but local
         and global is global-perm, as in the reference."""
@@ -217,7 +305,7 @@ class Model(nn.Module):
         p = pos_edges.shape[0]
         if cfg.neg_sampler == "local":
             return local_neg_sample(gen, pos_edges, self.num_nodes, cfg.num_neg)
-        if isinstance(graph, HybridGraph):
+        if isinstance(graph, (HybridGraph, GraphParallel)):
             raise ValueError("global samplers need the plain CSR twin: pass sample_graph")
         if cfg.neg_sampler == "global":
             return global_neg_sample(gen, graph, p, cfg.num_neg)
@@ -246,12 +334,10 @@ class Model(nn.Module):
         edge set the negative sampler excludes (default ``graph``).  The
         last batch takes the last ``batch_size`` entries and masks the ones
         the previous batch already took.  ``gen`` lies on the model's
-        device."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "data-parallel training over a mesh is not ported yet (ROADMAP "
-                "queue 1 item 11, multi-device runtime)"
-            )
+        device.  ``mesh`` (default: a GraphParallel's own) splits each batch
+        over its ranks; every rank must pass a generator with the same seed,
+        so that all draw the same negatives and shuffle."""
+        mesh = self._resolve_mesh(graph, mesh)
         cfg = self.cfg
         dev = self.device
         pos_edges = torch.as_tensor(pos_edges, device=dev).long()
@@ -273,6 +359,21 @@ class Model(nn.Module):
             weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)[perm]
 
         b = min(cfg.batch_size, p_cap)
+        drop_gen = gen
+        if mesh is not None and mesh.world_size > 1:
+            if b % mesh.world_size:
+                import warnings
+
+                warnings.warn(
+                    f"batch_size {b} is not divisible by the mesh's {mesh.world_size} "
+                    "ranks: pair batches split into uneven shares",
+                    stacklevel=2,
+                )
+            if cfg.dropout > 0:
+                # each rank its own dropout masks; the shared generator keeps
+                # drawing the same negatives and shuffles on every rank
+                seed = int(torch.randint(2**62, (1,), generator=gen, device=gen.device))
+                drop_gen = torch.Generator(device=gen.device).manual_seed(seed + mesh.rank)
         losses, counts = [], []
         for i in range(max(1, math.ceil(p_real / b))):
             lo = fresh_lo = i * b
@@ -284,7 +385,8 @@ class Model(nn.Module):
             loss = self.train_step(
                 opt, graph, graph_t, node_feats,
                 pos_edges[lo : lo + b], neg_edges[lo : lo + b],
-                weights[lo : lo + b] if use_margin else None, mask, lr, gen,
+                weights[lo : lo + b] if use_margin else None, mask, lr, drop_gen,
+                **({} if mesh is None else {"mesh": mesh}),
             )
             # loss and count stay on the device: one sync per epoch
             losses.append(loss)
@@ -300,6 +402,8 @@ class Model(nn.Module):
             if node_feats is None:
                 raise ValueError("use_node_feats=True needs node_feats")
             node_feats = torch.as_tensor(node_feats, dtype=torch.float32, device=self.device)
+            if self.row_placement is not None:
+                node_feats = shard_node_features(node_feats, self.row_placement)
             if self.use_emb:
                 return torch.cat([self.emb, node_feats], dim=-1)
             return node_feats
@@ -311,14 +415,22 @@ class Model(nn.Module):
         runs in the compute dtype); row N is the mean row that index -1
         resolves to (reference model.py:191-194)."""
         x = self._input_feat(node_feats).to(self.compute_dtype)
-        h = self.encoder(graph, x, graph_t=graph_t).float()  # metrics rank in f32
+        h = self._node_rows(graph, graph_t, x).float()  # metrics rank in f32
         return torch.cat([h, h.mean(0, keepdim=True)], dim=0)
 
     @torch.no_grad()
-    def batch_predict(self, h: torch.Tensor, edges) -> torch.Tensor:
+    def batch_predict(self, h: torch.Tensor, edges, mesh=None) -> torch.Tensor:
         """Scores for (M, 2) pairs in chunks of ``eval_batch_size or
-        batch_size``; returns an (M,) float32 tensor on ``h``'s device."""
+        batch_size``; returns an (M,) float32 tensor on ``h``'s device.
+        With ``mesh``, the pairs split over its data axis (each rank scores
+        its share with the full ``h``) and every rank gets all scores."""
         edges = torch.as_tensor(edges, device=h.device).long()
+        if mesh is not None and mesh.data > 1:
+            m = edges.shape[0]
+            per = -(-m // mesh.data)
+            edges = torch.cat([edges, edges.new_zeros((per * mesh.data - m, 2))])
+            mine = self.batch_predict(h, edges[mesh.data_index * per:][:per])
+            return gather_rows(mine, mesh.data_group)[:m]
         bs = self.cfg.eval_batch_size or self.cfg.batch_size
         n = self.num_nodes
         out = []
@@ -336,12 +448,17 @@ class Model(nn.Module):
         node_feats,
         split_edges: Dict[str, Dict[str, object]],
         eval_metric: str = "hits",
+        mesh=None,
     ):
         """Reference BaseModel.test: encode once, score valid/test pos+neg
-        pairs, Hits@K or MRR."""
+        pairs, Hits@K or MRR.  ``mesh`` splits the scoring over its data
+        axis."""
         h = self.encode(graph, graph_t, node_feats)
         preds = {
-            split: {kind: self.batch_predict(h, split_edges[split][kind]) for kind in ("pos", "neg")}
+            split: {
+                kind: self.batch_predict(h, split_edges[split][kind], mesh=mesh)
+                for kind in ("pos", "neg")
+            }
             for split in ("valid", "test")
         }
         if eval_metric == "mrr":

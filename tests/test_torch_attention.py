@@ -49,6 +49,7 @@ from plnlp_tpu_torch.ops import flash_tiles as ft
 from plnlp_tpu_torch.ops import sddmm as tsd
 from plnlp_tpu_torch.ops import tile_spmm as tts
 from plnlp_tpu_torch.training import Model, ModelConfig
+import tests.torch_cpu  # noqa: F401  (one PyTorch thread a test process)
 
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
 CONV_TOL = dict(rtol=1e-4, atol=1e-5)

@@ -1,5 +1,5 @@
-"""plnlp_tpu_torch's bfloat16 compute mode and block autotune against
-plnlp_tpu (CPU).
+"""plnlp_tpu_torch's bfloat16 compute mode and its ``--block_rows 0`` flag
+against plnlp_tpu (CPU).
 
 * K1's and K2's plain versions in bf16 (``scatter_matmul_reference``,
   ``tile_matmul_reference``, which the CUDA kernels are held to on the
@@ -18,10 +18,8 @@ plnlp_tpu (CPU).
   rounded to bf16 (2**-9 of each term), and the segment path, as the JAX
   package's, adds its ~50 messages a row in bf16, one rounding an add.
 * (``Model`` in bf16 is held in tests/test_torch_bf16_model.py.)
-* ``tuning``: ``autotune_block``'s choice and its fallbacks, only an
-  out-of-memory error skips a candidate; ``grid_search`` and
-  ``random_search`` through the port's ``run_experiment(device="cpu")``;
-  the CLI's ``--block_rows 0``.
+* The CLI's ``--block_rows 0`` (the autotune itself is held in
+  tests/test_torch_tuning.py).
 """
 
 import contextlib
@@ -40,7 +38,7 @@ import plnlp_tpu.ops.tile_spmm as jts
 from plnlp_tpu.ops.pallas_spmm import scatter_matmul as pallas_scatter_matmul
 from plnlp_tpu.ops.pallas_tiles import tile_matmul as pallas_tile_matmul
 from plnlp_tpu.ops.spmm import spmm as jspmm
-from plnlp_tpu_torch import cli, tuning
+from plnlp_tpu_torch import cli
 from plnlp_tpu_torch import dense as tdense
 from plnlp_tpu_torch import graph as tgraph
 from plnlp_tpu_torch.data.synthetic import make_sbm_graph
@@ -50,6 +48,7 @@ from plnlp_tpu_torch.ops import tile_spmm as tts
 from plnlp_tpu_torch.ops.spmm import spmm
 from tests.conftest import random_graph_np
 from tests.test_torch_cli import _args as cli_test_args
+import tests.torch_cpu  # noqa: F401  (one PyTorch thread a test process)
 
 BF = torch.bfloat16
 SPMM_TOL = dict(rtol=2**-5, atol=2**-5)
@@ -242,76 +241,11 @@ def test_spmm_bf16_matches_jax_and_f32(kind):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_autotune_block_picks_a_measured_candidate(dtype):
-    src, dst, _ = _sbm()
-    lines = []
-    best = tuning.autotune_block(src, dst, None, num_nodes=N, dim=8, block_edges=64,
-                                 candidates=((32, 64), (64, 64), (256, 64)), iters=1,
-                                 dtype=dtype, log=lines.append, device="cpu")
-    assert best in ((32, 64), (64, 64)) and best[0] <= N
-    assert len(lines) == 2 and all("spmm fwd+bwd" in line and dtype in line for line in lines)
-    # the default sweep keeps the caller's block_edges and skips R > num_nodes
-    r, b = tuning.autotune_block(src, dst, None, num_nodes=300, dim=4, block_edges=48,
-                                 iters=1, device="cpu")
-    assert r == 256 and b == 48
-
-
-def test_autotune_block_fallbacks_and_errors(monkeypatch):
-    src, dst, _ = _sbm()
-    # every candidate above num_nodes: the largest power of two <= N
-    assert tuning.autotune_block(src, dst, None, num_nodes=N, dim=4, block_edges=64,
-                                 device="cpu") == (64, 64)
-    lines = []
-
-    def oom(*a, **k):
-        raise torch.cuda.OutOfMemoryError("CUDA out of memory")
-
-    monkeypatch.setattr(tuning, "_fwd_bwd_seconds", oom)
-    got = tuning.autotune_block(src, dst, None, num_nodes=N, dim=4,
-                                candidates=((64, 32), (16, 32), (512, 32)),
-                                log=lines.append, device="cpu")
-    assert got == (16, 32) and len(lines) == 2 and "out of device memory" in lines[0]
-
-    def broken(*a, **k):
-        raise RuntimeError("scatter_matmul launch: CUDA error 98")
-
-    monkeypatch.setattr(tuning, "_fwd_bwd_seconds", broken)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        tuning.autotune_block(src, dst, None, num_nodes=N, dim=4, device="cpu",
-                              candidates=((16, 32),))
-
-
 def _cli_args(**kw):
     # above 512 nodes, so that the default sweep measures R = 256 and 512
     base = dict(data_name="synthetic:hits:num_nodes=600,num_edges=3000", epochs=1,
                 adj_backend="csr")
     return cli_test_args(**dict(base, **kw))
-
-
-def test_grid_and_random_search_run_the_port():
-    logs = []
-    with contextlib.redirect_stdout(io.StringIO()):
-        best, results = tuning.grid_search(
-            _cli_args(), {"lr": [1e-3, 1e-2], "num_neg": [1, 2]}, log=logs.append,
-            device="cpu",
-        )
-    assert [(r["lr"], r["num_neg"]) for r in results] == [(1e-3, 1), (1e-3, 2), (1e-2, 1),
-                                                         (1e-2, 2)]
-    assert best == max(results, key=lambda r: r["valid"])
-    assert {"valid", "valid_std", "test", "test_std"} <= set(best) and len(logs) == 5
-    with pytest.raises(ValueError, match="unknown CLI flag"):
-        tuning.grid_search(_cli_args(), {"not_a_flag": [1]}, log=None, device="cpu")
-    with contextlib.redirect_stdout(io.StringIO()):
-        best, results = tuning.random_search(
-            _cli_args(), {"lr": [1e-3, 1e-2]}, num_trials=6, seed=1, log=None, device="cpu"
-        )
-    assert 1 <= len(results) <= 2 and len({r["lr"] for r in results}) == len(results)
-    assert best == max(results, key=lambda r: r["valid"])
-    with pytest.raises(ValueError, match="num_trials"):
-        tuning.random_search(_cli_args(), {"lr": [1e-3]}, num_trials=0, log=None, device="cpu")
-    with pytest.raises(ValueError, match="eval points"):
-        tuning.grid_search(_cli_args(eval_steps=5), {"lr": [1e-3]}, log=None, device="cpu")
 
 
 @pytest.mark.parametrize("backend", ["csr", "hybrid"])

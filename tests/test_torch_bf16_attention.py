@@ -24,6 +24,7 @@ import plnlp_tpu.ops.pallas_attention as jpa
 from chip_smoke import BF16_RTOL, SUM_ATOL, SUM_RTOL, flash_bwd_magnitudes
 from plnlp_tpu_torch.ops import flash_tiles as ft
 from tests.test_torch_attention import KERNEL_TOL, NR, SCALE, T, D, _covered, _ptr, _t, _tile_case
+import tests.torch_cpu  # noqa: F401  (one PyTorch thread a test process)
 
 BF = torch.bfloat16
 STORES = ["int8", "bfloat16", "float32"]

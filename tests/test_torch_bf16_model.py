@@ -33,6 +33,7 @@ from plnlp_tpu_torch.ops import tile_spmm as tts
 from plnlp_tpu_torch.serve import Scorer
 from plnlp_tpu_torch.training import Model, ModelConfig
 from tests.test_torch_bf16 import _f32, _sbm
+import tests.torch_cpu  # noqa: F401  (one PyTorch thread a test process)
 
 MODEL_TOL = dict(rtol=3e-2, atol=1e-2)
 N, W, B = 100, 16, 32

@@ -1,23 +1,20 @@
 """plnlp_tpu_torch's CLI against plnlp_tpu's (CPU).
 
-* The flag surface: every field of ``argument([])`` and of the reference
-  README commands is equal in both packages.
-* Dataset surgery, the train and eval edges (hits and mrr layouts) and the
-  hybrid id-space relabel are equal array for array.
-* ``prepare_experiment`` chooses the backend the JAX CLI chooses: dense,
-  auto -> hybrid on a community graph, auto -> csr, serving -> csr.
 * ``run_experiment(device="cpu")`` runs every backend, with walk
   augmentation, and a run resumed from its checkpoint ends with the same
   parameter bits and Logger results as the run without the break.
 * ``--score_pairs`` equals the restored model's Scorer, under the hybrid
   relabel too, with pairs in original ids.
-* Flag values whose code is not ported raise NotImplementedError naming
-  their ROADMAP item.
+* Flag values whose code is not ported (the partition of TRANSFORMER and
+  of the hybrid operand) raise NotImplementedError naming their ROADMAP
+  item.
 
 The JAX ``run_experiment`` is never called (its compiles cost seconds a
 case); the two packages' random draws never agree, so runs are compared
 with themselves, and numeric parity is held per module in the other
-``tests/test_torch_*.py`` files.
+``tests/test_torch_*.py`` files.  The flag surface, the dataset surgery
+and ``prepare_experiment``'s choices are held against the JAX CLI's in
+tests/test_torch_cli_prepare.py.
 """
 
 import contextlib
@@ -29,16 +26,10 @@ import numpy as np
 import pytest
 import torch
 
-import plnlp_tpu.cli as jcli
-from plnlp_tpu.data import load_dataset as jax_load_dataset
 from plnlp_tpu_torch import cli
 from plnlp_tpu_torch.checkpoint import CheckpointManager
-from plnlp_tpu_torch.data import load_dataset
-from plnlp_tpu_torch.dense import DenseAdj
-from plnlp_tpu_torch.graph import Graph
-from plnlp_tpu_torch.ops.tile_spmm import HybridGraph
 from plnlp_tpu_torch.serve import Scorer
-from tests.test_cli import README_COMMANDS
+import tests.torch_cpu  # noqa: F401  (one PyTorch thread a test process)
 
 SMALL = "synthetic:hits:num_nodes=300,num_edges=3000"
 SBM = "synthetic:hits-sbm:num_nodes=600,num_edges=6000,num_communities=10"
@@ -61,19 +52,6 @@ def _run(args, log=None):
         return cli.run_experiment(args, log=log or (lambda *_: None), device="cpu")
 
 
-def test_flag_surface_matches_jax():
-    assert vars(cli.argument([])) == vars(jcli.argument([]))
-    for config, flags in README_COMMANDS.items():
-        argv = ["--data_name=ogbl-collab"] + flags.split()
-        assert vars(cli.argument(argv)) == vars(jcli.argument(argv)), config
-    extras = ["--prng_impl", "threefry2x32", "--resume", "--remat", "--reset_optimizer",
-              "--adj_backend", "hybrid", "--tile_reorder", "multilevel"]
-    assert vars(cli.argument(extras)) == vars(jcli.argument(extras))
-    for bad in (["--adj_backend", "sparse"], ["--compute_dtype", "f16"]):
-        with contextlib.redirect_stderr(io.StringIO()), pytest.raises(SystemExit):
-            cli.argument(bad)
-
-
 def _assert_tree_equal(a, b, path=""):
     if isinstance(a, dict):
         assert set(a) == set(b), path
@@ -84,58 +62,6 @@ def _assert_tree_equal(a, b, path=""):
     else:
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=path)
         assert np.asarray(a).dtype == np.asarray(b).dtype, path
-
-
-@pytest.mark.parametrize("encoder", ["SAGE", "GCN", "WSAGE", "TRANSFORMER"])
-def test_surgery_and_edges_match_jax(encoder):
-    name = "synthetic:hits:num_nodes=300,num_edges=3000,weighted=1,with_year=1"
-    ds = load_dataset(name)
-    _assert_tree_equal(ds["split_edge"], jax_load_dataset(name)["split_edge"])
-    for kw in (dict(year=2010, use_valedges_as_input=True, use_coalesce=True),
-               dict(year=2010), dict(data_name="ogbl-ddi", year=2010)):
-        args = _args(**dict(dict(data_name=name, encoder=encoder), **kw))
-        got = cli.apply_dataset_surgery(ds, args)
-        _assert_tree_equal(got, jcli.apply_dataset_surgery(ds, args))
-        for a, b in zip(cli.get_train_edges(got["split_edge"]),
-                        jcli.get_train_edges(got["split_edge"])):
-            _assert_tree_equal(a, b)
-        for split in ("valid", "test"):
-            _assert_tree_equal(cli.get_eval_edges(got["split_edge"], split),
-                               jcli.get_eval_edges(got["split_edge"], split))
-        relabel = np.random.default_rng(0).permutation(300)
-        _assert_tree_equal(cli._relabel_split_edge(got["split_edge"], relabel),
-                           jcli._relabel_split_edge(got["split_edge"], relabel))
-    mrr = load_dataset("synthetic:mrr:num_nodes=200,num_edges=1500,neg_per_source=7")
-    args = _args(data_name="synthetic:mrr", encoder=encoder)
-    got = cli.apply_dataset_surgery(mrr, args)
-    _assert_tree_equal(got, jcli.apply_dataset_surgery(mrr, args))
-    ev = cli.get_eval_edges(got["split_edge"], "valid")
-    _assert_tree_equal(ev, jcli.get_eval_edges(got["split_edge"], "valid"))
-    assert ev["neg"].shape == (7 * len(ev["pos"]), 2)
-    relabel = np.random.default_rng(1).permutation(200)
-    _assert_tree_equal(cli._relabel_split_edge(got["split_edge"], relabel),
-                       jcli._relabel_split_edge(got["split_edge"], relabel))
-
-
-@pytest.mark.parametrize("case,kw,serving,want", [
-    ("dense", dict(dense_threshold=5000), False, DenseAdj),
-    ("auto->hybrid", dict(data_name=SBM, **TILES), False, HybridGraph),
-    ("auto->csr", dict(data_name=SBM, tile_auto_coverage=1.5, **TILES), False, Graph),
-    ("serving auto->csr", dict(data_name=SBM, **TILES), True, Graph),
-])
-def test_backend_choice_matches_jax(case, kw, serving, want):
-    args = _args(**kw)
-    lines, jlines = [], []
-    got = cli.prepare_experiment(args, log=lines.append, serving=serving, device="cpu")
-    ref = jcli.prepare_experiment(args, log=jlines.append, serving=serving)
-    assert isinstance(got["graph"], want)
-    assert type(got["graph"]).__name__ == type(ref["graph"]).__name__
-    decision = [line for line in lines if "auto backend" in line]
-    assert decision == [line for line in jlines if "auto backend" in line]
-    if want is HybridGraph:
-        assert "-> hybrid" in decision[0]
-        np.testing.assert_array_equal(got["node_relabel"], ref["node_relabel"])
-        assert got["graph"].perm_in is None and isinstance(got["sample_graph"], Graph)
 
 
 @pytest.mark.parametrize("case,kw", [
@@ -230,8 +156,8 @@ def test_score_pairs_equals_restored_scorer(tmp_path, train_backend):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (dict(num_shards=2), "item 11"),
-    (dict(mesh_data=2), "item 11"),
+    (dict(num_shards=2, encoder="TRANSFORMER"), "item 11b"),
+    (dict(num_shards=2, adj_backend="hybrid"), "item 11b"),
 ])
 def test_unported_flags_raise(flag, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -250,20 +176,6 @@ def test_transformer_bf16_runs(backend):
     assert any("-> hybrid" in str(line) for line in lines) == (backend == "hybrid")
     res = np.asarray(loggers["Hits@20"].results[0])
     assert res.shape == (2, 2) and np.isfinite(res).all()
-
-
-@pytest.mark.parametrize("encoder", ["TRANSFORMER", "SAGE"])
-def test_prepare_experiment_couples_the_transpose_for_transformer(encoder):
-    """Over csr the TRANSFORMER operand carries tconv_map, as the JAX
-    CLI's does, so the encoder takes the blocked hand VJP; other encoders'
-    do not."""
-    args = _args(encoder=encoder, adj_backend="csr", block_rows=64, block_edges=64)
-    got = cli.prepare_experiment(args, log=lambda *_: None, device="cpu")
-    ref = jcli.prepare_experiment(args, log=lambda *_: None)
-    assert (got["graph"].tconv_map is not None) == (encoder == "TRANSFORMER")
-    assert (ref["graph"].tconv_map is not None) == (encoder == "TRANSFORMER")
-    if encoder == "TRANSFORMER":
-        assert got["graph"].tconv_map.shape == got["graph_t"].blk_src.shape
 
 
 def test_profile_dir_and_main(tmp_path):

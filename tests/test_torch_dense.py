@@ -34,6 +34,7 @@ from plnlp_tpu_torch.models import Encoder
 from plnlp_tpu_torch.ops.spmm import spmm
 from plnlp_tpu_torch.serve import Scorer
 from plnlp_tpu_torch.training import Model, ModelConfig
+import tests.torch_cpu  # noqa: F401  (one PyTorch thread a test process)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 ENC_TOL = dict(rtol=1e-5, atol=1e-5)

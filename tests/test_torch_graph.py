@@ -14,6 +14,7 @@ from plnlp_tpu.data.synthetic import make_synthetic_dataset as jax_make_dataset
 from plnlp_tpu_torch import graph as tgraph
 from plnlp_tpu_torch.data.synthetic import make_synthetic_dataset
 from tests.conftest import random_graph_np
+import tests.torch_cpu  # noqa: F401  (one PyTorch thread a test process)
 
 CASES = [
     # n, e, R, B, symmetrize, weighted

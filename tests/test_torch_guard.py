@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one PyTorch thread a test process)
+
 REPO = Path(__file__).resolve().parent.parent
 
 

@@ -16,6 +16,7 @@ from plnlp_tpu_torch.ops import scatter_matmul as sm
 from plnlp_tpu_torch.ops import tile_matmul as tm
 from plnlp_tpu_torch.ops import tile_spmm as tts
 from plnlp_tpu_torch.ops.spmm import _mean_scale, spmm
+import tests.torch_cpu  # noqa: F401  (one PyTorch thread a test process)
 
 
 @pytest.fixture

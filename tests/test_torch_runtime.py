@@ -43,6 +43,7 @@ from plnlp_tpu_torch.profiling import (
     summarize_trace,
 )
 from plnlp_tpu_torch.resilience import Preempted, PreemptionGuard, run_resilient
+import tests.torch_cpu  # noqa: F401  (one PyTorch thread a test process)
 
 # ---------------------------------------------------------------------------
 # Logger

@@ -17,6 +17,7 @@ from plnlp_tpu.sampling import degree_unigram_table as jax_unigram
 from plnlp_tpu.sampling import edges_exist as jax_edges_exist
 from plnlp_tpu_torch import graph as tgraph
 from plnlp_tpu_torch import sampling as ts
+import tests.torch_cpu  # noqa: F401  (one PyTorch thread a test process)
 
 
 def _graphs(n=300, e=2500, seed=0):

@@ -21,6 +21,7 @@ from plnlp_tpu_torch import graph as tgraph
 from plnlp_tpu_torch.ops import scatter_matmul as sm
 from plnlp_tpu_torch.ops.spmm import spmm, spmm_blocked, spmm_segment
 from tests.conftest import random_graph_np
+import tests.torch_cpu  # noqa: F401  (one PyTorch thread a test process)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -130,11 +131,11 @@ def test_unported_operands_and_bad_inputs_raise(rng):
     tg, _ = tgraph.prepare_graph(src, dst, num_nodes=30, block=(8, 32), device="cpu")
     x = torch.randn(30, 4)
 
-    class GraphParallel:  # stands in for the unported operand type
+    class Unknown:  # no aggregation operand of the port
         pass
 
-    with pytest.raises(NotImplementedError, match="GraphParallel.*item 11"):
-        spmm(GraphParallel(), x)
+    with pytest.raises(TypeError, match="unknown aggregation operand: Unknown"):
+        spmm(Unknown(), x)
     with pytest.raises(ValueError, match="reduce"):
         spmm(tg, x, reduce="max")
     args = (tg.blk_src, tg.blk_local, tg.blk_weight, tg.blk_rowptr, 8, 30)

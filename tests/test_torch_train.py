@@ -42,6 +42,7 @@ from plnlp_tpu_torch.models import Encoder
 from plnlp_tpu_torch.nn import dropout
 from plnlp_tpu_torch.ops import tile_spmm as tts
 from plnlp_tpu_torch.training import Model, ModelConfig, adjust_lr
+import tests.torch_cpu  # noqa: F401  (one PyTorch thread a test process)
 
 N, W, B = 300, 16, 64
 STEP_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -158,8 +159,10 @@ def test_train_epoch_batches_count_each_positive_once(monkeypatch):
     assert len(seen) == -(-p_real // 64) == 5
     assert sorted(sum(seen, [])) == list(range(5, p_real))
     assert out == 1.0
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tm.train_epoch(None, tg, None, None, pos, None, gen, 0.01, mesh=object())
+    from plnlp_tpu_torch.parallel import Mesh
+
+    with pytest.raises(ValueError, match="does not match the world"):
+        tm.train_epoch(None, tg, None, None, pos, None, gen, 0.01, mesh=Mesh(data=2, node=1))
 
 
 def test_train_epoch_on_hybrid_runs():

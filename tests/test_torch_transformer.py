@@ -46,6 +46,7 @@ from plnlp_tpu_torch import graph as tgraph
 from plnlp_tpu_torch.convert import _load
 from plnlp_tpu_torch.models import Encoder
 from plnlp_tpu_torch.ops import transformer as ttf
+import tests.torch_cpu  # noqa: F401  (one PyTorch thread a test process)
 
 F32_TOL = dict(rtol=1e-4, atol=1e-5)
 BF16_TOL = dict(rtol=3e-2, atol=1e-2)
