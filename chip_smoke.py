@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the plnlp_tpu_torch serving and training paths (SAGE and
 TRANSFORMER, float32 and bfloat16, over the hybrid operand and blocked
-CSR), the partitioned multi-device path and the training CLI on NVIDIA
-GPUs (one card, or up to four) and check them.
+CSR), the partitioned multi-device path (blocked and tiled) and the
+training CLI on NVIDIA GPUs (one card, or up to four) and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -143,6 +143,19 @@ Phases (any failure exits non-zero):
    source-sharded structure); the shards' rows, reassembled through the
    slot permutation, against K1 over the single operand (1e-5 + 1e-6
    sum|terms|), with the per-shard K1 times beside the single operand's;
+31c. K2 and K1 over a real 4-shard tiled partition of phase 7's SBM on
+   this card, in one process with no collective: ``partition_graph(
+   num_shards=4, reorder='labelprop', tile=256, min_fill=96)`` over the
+   relabeled ids with the identity order (as the CLI builds it), every
+   shard placed by ``GraphParallel.place``, K2 over the shard's tiles and
+   K1 over its residual on the gathered buffer (the tiled body), forward
+   and backward (the transposed tiles, the source-sharded residual), in
+   f32 and bf16; the shards' rows, reassembled through the slot
+   permutation, against K2 + K1 over the single hybrid operand (1e-5 +
+   1e-6 sum|terms| in f32; in bf16 one bf16 ulp of the result and of each
+   term beside it: the two split the edges between tiles and residual
+   differently, and each part is rounded once), with the per-shard K2 and
+   K1 times beside the single operand's and the host build time;
 32. the partitioned path (``parallel/``) on W = min(cards, 4) ranks, one
    process and one card each over NCCL (W = 1 on a one-card machine), at
    collab's shape (2-layer SAGE, width 256, batch 65,536) over
@@ -154,8 +167,22 @@ Phases (any failure exits non-zero):
    ``Scorer(mesh=).score`` on 65,536 pairs (DOT and MLP); one epoch in
    bf16 (only K1-bf16); the build, step and epoch times beside the single
    operand's on the same card; with W = 4 also (data, node) = (2, 2);
-33. the collab command through ``torchrun --nproc_per_node=W -m
-   plnlp_tpu_torch --num_shards W`` for one epoch;
+   then (b) TRANSFORMER over that bfs partition
+   (``partitioned_transformer_conv``): one layer (width 256) and its input
+   and parameter gradients (summed over the ranks) against
+   ``ops/transformer.py`` over the single operand, in f32 and bf16, K1 1
+   launch forward and 3 backward; one epoch (2 layers, batch 65,536) in
+   each dtype, K1 8 a step in x's dtype only, with step and epoch times
+   beside the single operand's (phase 29's measure); and (a) SAGE over the
+   tiled partition of phase 7's SBM (labelprop, T = 256, min_fill = 96, as
+   the CLI builds it): the encode against the single hybrid operand's
+   (1e-5 + 1e-6 sum|terms|), K2 2 and K1 2 launches an encode and 4 of
+   each a step on every rank, one epoch in f32 and one in bf16 (only the
+   bf16 entries), step times beside the single operand's;
+33. through ``torchrun --nproc_per_node=W -m plnlp_tpu_torch --num_shards
+   W`` for one epoch each: the collab command, it with ``--encoder
+   TRANSFORMER``, and SAGE on phase 19's SBM with ``--adj_backend
+   hybrid`` (the tiled partition at W > 1);
 34. print the card's name and power limit, the ``{"kernels": [...]}`` line
    (K1 to K5, the bf16 K1 and K2, and the bf16 K3, K4 and K5), and
    ``{"ok": true, "device": {...}}`` as the last line.
@@ -329,29 +356,38 @@ def hybrid_data(num_nodes: int, num_edges: int, num_communities: int, seed: int,
     }
 
 
-def plain_hybrid_mean(hg, x):
-    """``hybrid_spmm(hg, x, "mean")`` through the kernels' plain versions,
-    so autograd gives the reference gradient (perm-free operand; x at
-    num_nodes rows, or at n_pad rows under padded-carry, whose output rows
-    past num_nodes are zero)."""
+def plain_hybrid_dir(hg, x, direction="fwd"):
+    """One direction of the perm-free hybrid operand (``ops/tile_spmm.
+    _hybrid_dir``) through the kernels' plain versions, x at num_nodes
+    rows, or at n_pad rows under padded-carry, whose output rows past
+    num_nodes are zero."""
     import torch
 
     from plnlp_tpu_torch.ops.scatter_matmul import scatter_matmul_reference
     from plnlp_tpu_torch.ops.tile_matmul import tile_matmul_reference
 
+    suf, r = ("", hg.res_graph) if direction == "fwd" else ("_t", hg.res_graph_t)
     n, rows = hg.num_nodes, x.shape[0]
-    out = tile_matmul_reference(
-        hg.tile_vals, hg.tile_row, hg.tile_col, x, hg.tile_rowptr.shape[0] - 1, rows
-    )
-    r = hg.res_graph
+    out = tile_matmul_reference(getattr(hg, "tile_vals" + suf), getattr(hg, "tile_row" + suf),
+                                getattr(hg, "tile_col" + suf), x, hg.tile_rowptr.shape[0] - 1,
+                                rows)
     if r is not None:
         res = scatter_matmul_reference(
             x, r.blk_src, r.blk_local, r.blk_weight, r.blk_rowptr, r.block_rows, n
         )
         out = out + torch.cat([res, res.new_zeros(rows - n, res.shape[1])])
+    return out
+
+
+def plain_hybrid_mean(hg, x):
+    """``hybrid_spmm(hg, x, "mean")`` through the kernels' plain versions,
+    so autograd gives the reference gradient."""
+    import torch
+
+    n, rows = hg.num_nodes, x.shape[0]
     deg = hg.in_degrees
     scale = torch.where(deg > 0, 1.0 / deg.clamp(min=1.0), 0.0)
-    return out * torch.cat([scale, scale.new_zeros(rows - n)])[:, None]
+    return plain_hybrid_dir(hg, x) * torch.cat([scale, scale.new_zeros(rows - n)])[:, None]
 
 
 def abs_operand(hg):
@@ -2325,6 +2361,95 @@ def shard_k1_phase(graph, graph_t, src, dst, gen, card):
     return {"build_s": build_s, "ag_ms": ag_ms, "halo_ms": halo_ms, "single_ms": single_ms}
 
 
+def shard_tiles_phase(data, gen, card):
+    """Phase 31c: K2 and K1 over each shard of a 4-shard labelprop tiled
+    partition of phase 7's SBM on this card (one process, the all_gather
+    done by indexing), forward and backward, in f32 and bf16, against K2 +
+    K1 over the single hybrid operand."""
+    import torch
+
+    from plnlp_tpu_torch.ops import scatter_matmul as sm
+    from plnlp_tpu_torch.ops import tile_matmul as tm
+    from plnlp_tpu_torch.ops.tile_spmm import _hybrid_dir
+    from plnlp_tpu_torch.parallel.graph_parallel import (
+        GraphParallel, _apply_tiles, _k1, shard_node_features,
+    )
+    from plnlp_tpu_torch.parallel.mesh import Mesh
+    from plnlp_tpu_torch.parallel.partition import partition_graph
+
+    S, hg = 4, data["hg"]
+    n, dev = hg.num_nodes, hg.tile_vals.device
+    relabel = np.empty(n, np.int64)
+    relabel[data["est"]["order"]] = np.arange(n)
+    src, dst = (relabel[e] for e in data["edges"])
+    t0 = time.perf_counter()
+    # as the CLI partitions an id space already relabeled to community
+    # order: labelprop with the identity order (no second sweep)
+    pg = partition_graph(src, dst, None, num_nodes=n, num_shards=S, block=BLOCK,
+                         reorder="labelprop", tile=TILE, min_fill=MIN_FILL,
+                         order=np.arange(n, dtype=np.int64))
+    build_s = time.perf_counter() - t0
+    shards = [GraphParallel.place(pg, Mesh(1, S, rank=s, device=dev)) for s in range(S)]
+    rps = pg.rows_per_shard
+    res_edges = [int((sh.fwd["blk_weight"] != 0).sum()) for sh in shards]
+    log(f"[shard-tiles] S={S} reorder={pg.reorder} rows_per_shard={rps} shard_edges="
+        f"{pg.shard_edges} tiles/shard={pg.shard_tiles} (single operand {hg.num_tiles}) "
+        f"dense_edges={pg.tile_dense_edges} (single {hg.dense_edges}) residual/shard={res_edges} "
+        f"store={pg.tile_store}; host build {build_s:.2f} s")
+
+    def to_slots(v):  # (n, D) in node order -> the gathered (S * rps, D) buffer
+        return torch.cat([shard_node_features(v, sh) for sh in shards])
+
+    def body(v_slots, d, direction):
+        sh = shards[d]
+        if direction == "fwd":
+            return _apply_tiles(sh, v_slots, sh.fwd, sh.tiles)
+        return _apply_tiles(sh, v_slots, sh.bwd, sh.tiles_t)
+
+    zero_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        for direction in ("fwd", "bwd"):
+            v = torch.randn(n, WIDTH, device=dev, generator=gen).to(dtype)
+            want = _hybrid_dir(hg, v, direction)
+            abs_sum = plain_hybrid_dir(abs_operand(hg), v.float().abs(), direction)
+            got = torch.cat([body(to_slots(v), d, direction) for d in range(S)])
+            got = got.index_select(0, shards[0].node_map)
+            torch.cuda.synchronize()
+            # bf16: each of K2's, K1's and their sum's outputs is rounded
+            # once, over another split of the edges between tiles and
+            # residual than the single operand's
+            bf = dtype == torch.bfloat16
+            ea, ratio, ok = sum_errors(got, want, abs_sum, BF16_RTOL if bf else 0.0,
+                                       SUM_RTOL + (BF16_RTOL if bf else 0.0))
+            log(f"[shard-tiles] {str(dtype)[6:]} {direction}: 4 shards' K2 + K1 reassembled vs "
+                f"K2 + K1 over the single operand: max_abs={ea:.3e} max err/tol={ratio:.3f} "
+                f"ok={ok}")
+            require(ok, f"K2 + K1 over the tiled shards ({dtype}, {direction}) differ from the "
+                        "single operand's")
+    counts = launch_counts()
+    want = {"K1": 2 * (1 + S), "K2": 2 * (1 + S), "K1bf16": 2 * (1 + S), "K2bf16": 2 * (1 + S)}
+    require(counts == _only(counts, **want), f"launches over the tiled shards {counts}, want {want}")
+    x = torch.randn(n, WIDTH, device=dev, generator=gen)
+    x_slots = to_slots(x)
+    k2_ms = [cuda_ms(lambda sh=sh: tm.tile_matmul(sh.tiles["vals"], sh.tiles["row"],
+                                                  sh.tiles["col"], sh.tiles["rowptr"], x_slots,
+                                                  rps), reps=10, runs=3) for sh in shards]
+    k1_ms = [cuda_ms(lambda sh=sh: _k1(x_slots, sh.fwd, sh), reps=10, runs=3) for sh in shards]
+    single_k2 = cuda_ms(lambda: tm.tile_matmul(hg.tile_vals, hg.tile_row, hg.tile_col,
+                                               hg.tile_rowptr, x, n), reps=10, runs=3)
+    r = hg.res_graph
+    single_k1 = cuda_ms(lambda: sm.scatter_matmul(x, r.blk_src, r.blk_local, r.blk_weight,
+                                                  r.blk_rowptr, r.block_rows, n),
+                        reps=10, runs=3)
+    log(f"[shard-tiles] forward, f32, x of {S * rps} gathered rows: K2 per shard "
+        f"{', '.join(f'{t:.4f}' for t in k2_ms)} ms (sum {sum(k2_ms):.4f}), K1 on the residual "
+        f"per shard {', '.join(f'{t:.4f}' for t in k1_ms)} ms (sum {sum(k1_ms):.4f}); the single "
+        f"operand's K2 {single_k2:.4f} ms and residual K1 {single_k1:.4f} ms ({hg.res_edges} "
+        f"edges); card {card}")
+    return {"build_s": build_s, "k2_ms": k2_ms, "k1_ms": k1_ms, "single_k2_ms": single_k2,
+            "single_k1_ms": single_k1}
+
+
 def _free_port() -> int:
     import socket
 
@@ -2367,7 +2492,6 @@ def _parallel_work(rank, world, dev, opts):
 
     from plnlp_tpu_torch import prepare_graph
     from plnlp_tpu_torch.data import make_synthetic_dataset
-    from plnlp_tpu_torch.ops import scatter_matmul as sm
     from plnlp_tpu_torch.parallel import make_graph_parallel, make_mesh
     from plnlp_tpu_torch.serve import Scorer
     from plnlp_tpu_torch.training import Model, ModelConfig
@@ -2382,8 +2506,9 @@ def _parallel_work(rank, world, dev, opts):
     n, seed, width, batch = opts["n_nodes"], opts["seed"], opts["width"], opts["batch"]
     ds = make_synthetic_dataset("hits", num_nodes=n, num_edges=opts["n_edges"], seed=seed)
     src, dst = ds["edge_index"]
+    # with the slot map of TRANSFORMER's blocked backward (part b)
     graph, graph_t = prepare_graph(src, dst, None, num_nodes=n, symmetrize=True, block=BLOCK,
-                                   device=dev)
+                                   device=dev, couple_transpose=True)
     twin, _ = prepare_graph(src, dst, None, num_nodes=n, symmetrize=True, block=None, device=dev)
     pos = torch.as_tensor(ds["split_edge"]["train"]["edge"], device=dev)
     split = {s: {"pos": ds["split_edge"][s]["edge"], "neg": ds["split_edge"][s]["edge_neg"]}
@@ -2394,20 +2519,18 @@ def _parallel_work(rank, world, dev, opts):
                       gnn_hidden_channels=width, mlp_hidden_channels=width, batch_size=batch)
     mlp_cfg = dataclasses.replace(cfg, predictor="MLP")
 
-    def k1():
-        return {"K1": sm.LAUNCHES, "K1bf16": sm.LAUNCHES_BF16}
-
     def zero():
         sync()
-        sm.LAUNCHES = sm.LAUNCHES_BF16 = 0
+        zero_counts()
 
-    def launches_ok(what, want):
-        got = k1()
+    def launches_ok(what, **want):
+        """The launches since ``zero()``: those named, every other kernel 0."""
+        got = launch_counts()
         if cuda:  # a wrapper counts where it launches the kernel: on the card
-            require(got == want, f"rank {rank} {what}: launches {got}, want {want}")
+            require(got == _only(got, **want), f"rank {rank} {what}: launches {got}, want {want}")
         return got
 
-    def time_steps(model, opt, g, g_t, mesh, reps=5):
+    def time_steps(model, opt, g, g_t, mesh, reps=5, pos=pos, twin=twin):
         gen = torch.Generator(device=dev).manual_seed(seed + 1)
         pos_b = pos[:batch]
         neg_b = model.sample_negatives(gen, twin, pos_b)
@@ -2421,7 +2544,7 @@ def _parallel_work(rank, world, dev, opts):
         sync()
         return (time.perf_counter() - t0) / reps * 1e3
 
-    def epoch(model, opt, g, g_t, mesh):
+    def epoch(model, opt, g, g_t, mesh, pos=pos, twin=twin):
         gen = torch.Generator(device=dev).manual_seed(seed)
         zero()
         t0 = time.perf_counter()
@@ -2430,7 +2553,7 @@ def _parallel_work(rank, world, dev, opts):
         sync()
         return loss, time.perf_counter() - t0
 
-    out = {"world": world, "steps": steps, "comm": {}, "launches": {"K1": 0, "K1bf16": 0}}
+    out = {"world": world, "steps": steps, "comm": {}, "launches": dict.fromkeys(launch_counts(), 0)}
 
     def add(counts):
         for k, v in counts.items():
@@ -2467,7 +2590,7 @@ def _parallel_work(rank, world, dev, opts):
         zero()
         h = model.encode(gp)
         sync()
-        add(launches_ok("encode", {"K1": 2 * per_pass, "K1bf16": 0}))
+        add(launches_ok("encode", K1=2 * per_pass))
         h_ref = ref.encode(graph, graph_t)
         with torch.no_grad():
             for p in ref.parameters():
@@ -2487,19 +2610,19 @@ def _parallel_work(rank, world, dev, opts):
         mlp = Model(mlp_cfg, n, seed=seed, device=dev).place_rows(gp)
         opt = mlp.make_optimizer()
         loss, r["epoch_s"] = epoch(mlp, opt, gp, None, mesh)
-        add(launches_ok("epoch", {"K1": 4 * per_pass * steps, "K1bf16": 0}))
+        add(launches_ok("epoch", K1=4 * per_pass * steps))
         require(math.isfinite(loss), f"{comm}: epoch loss {loss}")
         r["loss"] = loss
         r["step_ms"] = time_steps(mlp, opt, gp, None, mesh)
         zero()
         hits = mlp.test(gp, None, None, split, "hits", mesh=mesh)
         sync()
-        add(launches_ok("test", {"K1": 2 * per_pass, "K1bf16": 0}))
+        add(launches_ok("test", K1=2 * per_pass))
         require(all(0.0 <= v <= 1.0 for pair in hits.values() for v in pair), f"hits {hits}")
         zero()
         scores = Scorer(model, gp, mesh=mesh).score(pairs)
         scores_mlp = Scorer(mlp, gp, mesh=mesh).score(pairs)
-        add(launches_ok("two scorers", {"K1": 4 * per_pass, "K1bf16": 0}))
+        add(launches_ok("two scorers", K1=4 * per_pass))
         require(scores.shape == (len(pairs),) and np.isfinite(scores).all(), "DOT scores")
         require(scores_mlp.shape == (len(pairs),) and np.isfinite(scores_mlp).all(), "MLP scores")
         r["hits"] = hits
@@ -2518,7 +2641,7 @@ def _parallel_work(rank, world, dev, opts):
                device=dev).place_rows(gp_ag)
     opt = bf.make_optimizer()
     loss, out["bf16_epoch_s"] = epoch(bf, opt, gp_ag, None, mesh)
-    add(launches_ok("bf16 epoch", {"K1": 0, "K1bf16": 4 * steps}))
+    add(launches_ok("bf16 epoch", K1bf16=4 * steps))
     require(math.isfinite(loss), f"bf16 epoch loss {loss}")
     require(all(p.dtype == torch.float32 for p in bf.parameters()), "bf16: parameters stay f32")
     out["bf16_loss"] = loss
@@ -2539,7 +2662,178 @@ def _parallel_work(rank, world, dev, opts):
         out["mesh22_loss"], out["mesh22_hits"] = loss, hits
         say(f"[parallel] mesh (data=2, node=2): epoch loss {loss:.4f} in "
             f"{out['mesh22_epoch_s']:.3f} s; test {json.dumps(hits)}")
+        del m22, gp22
+    out["transformer"] = _parallel_transformer(
+        rank, dev, opts, gp_ag, graph, graph_t, pos, twin, split, launches_ok, zero, add,
+        time_steps, epoch)
+    del gp_ag, graph, graph_t, twin
+    if cuda:
+        torch.cuda.empty_cache()
+    out["tiled"] = _parallel_tiled(rank, world, dev, opts, mesh, launches_ok, zero, add,
+                                   time_steps, epoch)
     return out
+
+
+def _parallel_tiled(rank, world, dev, opts, mesh, launches_ok, zero, add, time_steps, epoch):
+    """Phase 32(a): SAGE over the tiled partition of phase 7's SBM (built
+    as the CLI builds it: the id space relabeled to community order, then
+    labelprop slots with the identity order); the encode against the single
+    hybrid operand's, K2 2 and K1 2 launches an encode and 4 of each a
+    step on every rank, one epoch in f32 and one in bf16."""
+    import torch
+
+    from plnlp_tpu_torch.parallel import make_graph_parallel
+    from plnlp_tpu_torch.training import Model, ModelConfig
+
+    say = log if rank == 0 else (lambda _msg: None)
+    seed, width, batch = opts["seed"], opts["width"], opts["batch"]
+    n, e, c = opts["sbm"]
+    data = hybrid_data(n, e, c, seed, dev)
+    hg, twin = data["hg"], data["sample_graph"]
+    pos = torch.as_tensor(data["pos"], device=dev)
+    steps = -(-pos.shape[0] // batch)
+    relabel = np.empty(n, np.int64)
+    relabel[data["est"]["order"]] = np.arange(n)
+    src, dst = (relabel[a] for a in data["edges"])
+    t0 = time.perf_counter()
+    gp = make_graph_parallel(src, dst, None, num_nodes=n, mesh=mesh, block=BLOCK, tile=TILE,
+                             min_fill=MIN_FILL, reorder="labelprop",
+                             order=np.arange(n, dtype=np.int64))
+    r = {"build_s": time.perf_counter() - t0, "rows_per_shard": gp.rows_per_shard,
+         "shard_tiles": list(gp.pg.shard_tiles), "dense_edges": gp.pg.tile_dense_edges,
+         "store": gp.pg.tile_store, "comm": gp.comm, "steps": steps}
+    say(f"[parallel-tiles] W={world}: SBM N={n}, tiled partition reorder={gp.pg.reorder} "
+        f"comm={gp.comm} rows_per_shard={gp.rows_per_shard} tiles/shard={gp.pg.shard_tiles} "
+        f"dense_edges={gp.pg.tile_dense_edges} (single operand {hg.num_tiles} tiles, "
+        f"{hg.dense_edges} dense edges) store={gp.pg.tile_store}, built in {r['build_s']:.2f} s")
+    cfg = ModelConfig(encoder="SAGE", predictor="DOT", gnn_num_layers=2, emb_hidden_channels=width,
+                      gnn_hidden_channels=width, mlp_hidden_channels=width, batch_size=batch)
+    mlp_cfg = dataclasses.replace(cfg, predictor="MLP")
+    ref = Model(cfg, n, seed=seed, device=dev)
+    model = copy.deepcopy(ref).place_rows(gp)
+    zero()
+    h = model.encode(gp)
+    add(launches_ok("tiled encode", K2=2, K1=2))
+    h_ref = ref.encode(hg)
+    with torch.no_grad():
+        for p in ref.parameters():
+            p.abs_()
+    h_abs = ref.encode(hg)  # the terms' magnitudes (no cancellation)
+    ratio = float(((h - h_ref).abs() / (SUM_ATOL + SUM_RTOL * h_abs)).max())
+    r["encode_max_abs"], r["encode_err_over_tol"] = float((h - h_ref).abs().max()), ratio
+    say(f"[parallel-tiles] tiled encode vs the single hybrid operand's: max_abs="
+        f"{r['encode_max_abs']:.3e} max err/tol={ratio:.3f} (tol {SUM_ATOL} + "
+        f"{SUM_RTOL}*sum|terms|)")
+    require(ratio <= 1.0, "the tiled partitioned encode differs from the single operand's")
+    del ref, model, h, h_ref, h_abs
+    single = Model(mlp_cfg, n, seed=seed, device=dev)
+    r["single_step_ms"] = time_steps(single, single.make_optimizer(), hg, None, None, pos=pos,
+                                     twin=twin)
+    del single
+    for dtype, k2, k1 in (("float32", "K2", "K1"), ("bfloat16", "K2bf16", "K1bf16")):
+        m = Model(dataclasses.replace(mlp_cfg, compute_dtype=dtype), n, seed=seed,
+                  device=dev).place_rows(gp)
+        opt = m.make_optimizer()
+        loss, epoch_s = epoch(m, opt, gp, None, mesh, pos=pos, twin=twin)
+        add(launches_ok(f"tiled {dtype} epoch", **{k2: 4 * steps, k1: 4 * steps}))
+        require(math.isfinite(loss), f"tiled {dtype} epoch loss {loss}")
+        step_ms = time_steps(m, opt, gp, None, mesh, pos=pos, twin=twin)
+        r[dtype] = {"loss": loss, "epoch_s": epoch_s, "step_ms": step_ms}
+        say(f"[parallel-tiles] SAGE {dtype} over the tiled partition: epoch loss {loss:.4f} in "
+            f"{epoch_s:.3f} s ({steps} steps, {k2} 4 and {k1} 4 a step), step {step_ms:.2f} ms "
+            f"(single hybrid operand, f32: {r['single_step_ms']:.2f} ms)")
+        del m, opt
+    return r
+
+
+def _parallel_transformer(rank, dev, opts, gp, graph, graph_t, pos, twin, split, launches_ok,
+                          zero, add, time_steps, epoch):
+    """Phase 32(b): TRANSFORMER over the blocked (bfs, all_gather)
+    partition of the collab graph: one layer and its input and parameter
+    gradients (summed over the ranks) against ``ops/transformer.py`` over
+    the single operand on the same card, in f32 and bf16, K1 1 launch
+    forward and 3 backward; one epoch in each dtype (K1 8 a step in x's
+    dtype only) beside the single operand's step and epoch."""
+    import torch
+    import torch.distributed as dist
+
+    from plnlp_tpu_torch.models import Encoder
+    from plnlp_tpu_torch.ops.transformer import transformer_conv_blocked
+    from plnlp_tpu_torch.parallel import gather_node_features, shard_node_features
+    from plnlp_tpu_torch.parallel.graph_parallel import partitioned_transformer_conv
+    from plnlp_tpu_torch.training import Model, ModelConfig
+
+    say = log if rank == 0 else (lambda _msg: None)
+    seed, width, batch = opts["seed"], opts["width"], opts["batch"]
+    n = graph.num_nodes
+    steps = -(-pos.shape[0] // batch)
+    mesh = gp.mesh
+    r = {"steps": steps}
+    lp = Encoder(torch.Generator().manual_seed(1), "TRANSFORMER", width, width, 1).to(dev).layers[0]
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)  # the same x and gy on every rank
+    x = torch.randn(n, width, device=dev, generator=gen)
+    gy = torch.randn(n, width, device=dev, generator=gen)
+    for dtype, k1 in ((torch.float32, "K1"), (torch.bfloat16, "K1bf16")):
+        lp.zero_grad(set_to_none=True)
+        xr = x.to(dtype).clone().requires_grad_(True)
+        want = transformer_conv_blocked(lp, graph, graph_t, xr)
+        (want.float() * gy).sum().backward()
+        want_g = _grads_of(lp, xr)
+        lp.zero_grad(set_to_none=True)
+        xl = shard_node_features(x.to(dtype), gp).requires_grad_(True)
+        zero()
+        y = partitioned_transformer_conv(gp, lp, xl)
+        launches_ok(f"TransformerConv {dtype} forward", **{k1: 1})
+        (y.float() * shard_node_features(gy, gp)).sum().backward()
+        add(launches_ok(f"TransformerConv {dtype} forward and backward", **{k1: 4}))
+        for lin in lp.values():  # this rank's partial sums, summed over the ranks
+            for p in lin.parameters():
+                if dist.is_initialized() and dist.get_world_size() > 1:
+                    dist.all_reduce(p.grad)
+        got = gather_node_features(y.detach(), gp)
+        got_g = [gather_node_features(xl.grad.float(), gp)] + _grads_of(lp, xl)[1:]
+        with torch.no_grad():
+            skip = lp["lin_skip"](x.to(dtype).float())
+        ea, ratio = conv_value_errors(got, want.detach(), skip, dtype)
+        grad_tol = 1e-4 if dtype == torch.float32 else BF16_GRAD_TOL
+        rel = {name: _rel_l2(a, b) for name, a, b in zip(["x", *lp.keys()], got_g, want_g)}
+        key = str(dtype)[6:]
+        r[f"layer_{key}"] = {"max_abs": ea, "err_over_tol": ratio, "grad_rel_l2": rel}
+        say(f"[parallel-transformer] partitioned TransformerConv in {key} (N={n}, D={width}) vs "
+            f"ops/transformer.py over the single operand: values max_abs {ea:.3e}, max err/tol "
+            f"{ratio:.3f}; gradient relative L2 " + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+            + f" (tol {grad_tol}); K1 1 forward, 3 backward")
+        require(ratio <= 1.0, f"partitioned TransformerConv {key}: values err/tol {ratio:.3f}")
+        require(max(rel.values()) <= grad_tol, f"partitioned TransformerConv {key}: {rel}")
+        del xr, want, want_g, xl, y, got, got_g, skip
+    del x, gy
+    cfg = ModelConfig(encoder="TRANSFORMER", predictor="MLP", loss_func="AUC",
+                      neg_sampler="global", gnn_num_layers=2, emb_hidden_channels=width,
+                      gnn_hidden_channels=width, mlp_hidden_channels=width, batch_size=batch,
+                      num_neg=1)
+    single = Model(cfg, n, seed=seed, device=dev)
+    opt = single.make_optimizer()
+    loss, r["single_epoch_s"] = epoch(single, opt, graph, graph_t, None)
+    require(math.isfinite(loss), f"single TRANSFORMER epoch loss {loss}")
+    r["single_step_ms"] = time_steps(single, opt, graph, graph_t, None, reps=3)
+    del single, opt
+    for dtype, k1 in (("float32", "K1"), ("bfloat16", "K1bf16")):
+        m = Model(dataclasses.replace(cfg, compute_dtype=dtype), n, seed=seed,
+                  device=dev).place_rows(gp)
+        opt = m.make_optimizer()
+        loss, epoch_s = epoch(m, opt, gp, None, mesh)
+        add(launches_ok(f"TRANSFORMER {dtype} epoch", **{k1: 8 * steps}))
+        require(math.isfinite(loss), f"partitioned TRANSFORMER {dtype} epoch loss {loss}")
+        hits = m.test(gp, None, None, split, "hits", mesh=mesh)
+        require(all(0.0 <= v <= 1.0 for pair in hits.values() for v in pair), f"hits {hits}")
+        step_ms = time_steps(m, opt, gp, None, mesh, reps=3)
+        r[dtype] = {"loss": loss, "epoch_s": epoch_s, "step_ms": step_ms}
+        say(f"[parallel-transformer] TRANSFORMER {dtype} over the partition: epoch loss "
+            f"{loss:.4f} in {epoch_s:.3f} s ({steps} steps, {k1} 8 a step), step {step_ms:.2f} ms "
+            f"(single operand f32: step {r['single_step_ms']:.2f} ms, epoch "
+            f"{r['single_epoch_s']:.3f} s); test {json.dumps(hits)}")
+        del m, opt
+    return r
 
 
 def spawn_ranks(world: int, opts: dict, tmp: str) -> dict:
@@ -2576,6 +2870,7 @@ def parallel_path(args, card, tmp):
     res = spawn_ranks(world, {
         "backend": "nccl", "seed": args.seed, "n_nodes": N_NODES, "n_edges": N_EDGES,
         "width": WIDTH, "batch": BATCH, "pairs": CLI_PAIRS,
+        "sbm": (N_NODES, N_EDGES, N_COMMUNITIES),
     }, tmp)
     log(f"[parallel] W={world}: single operand step {res['single_step_ms']:.2f} ms, epoch "
         f"{res['single_epoch_s']:.3f} s; partitioned all_gather step "
@@ -2584,19 +2879,49 @@ def parallel_path(args, card, tmp):
         f"{res['comm']['all_gather']['build_s']:.2f} s; halo step "
         f"{res['comm']['halo']['step_ms']:.2f} ms, epoch {res['comm']['halo']['epoch_s']:.3f} s, "
         f"build {res['comm']['halo']['build_s']:.2f} s; bf16 step {res['bf16_step_ms']:.2f} ms, "
-        f"epoch {res['bf16_epoch_s']:.3f} s; rank 0's K1 launches {res['launches']}; "
-        f"phase {time.perf_counter() - t0:.1f} s; card {card}")
+        f"epoch {res['bf16_epoch_s']:.3f} s; card {card}")
+    tl, tf = res["tiled"], res["transformer"]
+    log(f"[parallel] W={world}: (a) SAGE over the tiled partition: step f32 "
+        f"{tl['float32']['step_ms']:.2f} ms, bf16 {tl['bfloat16']['step_ms']:.2f} ms (single "
+        f"hybrid operand f32 {tl['single_step_ms']:.2f} ms), epoch f32 "
+        f"{tl['float32']['epoch_s']:.3f} s, bf16 {tl['bfloat16']['epoch_s']:.3f} s, build "
+        f"{tl['build_s']:.2f} s; (b) TRANSFORMER over the blocked partition: step f32 "
+        f"{tf['float32']['step_ms']:.2f} ms, bf16 {tf['bfloat16']['step_ms']:.2f} ms (single "
+        f"operand f32 {tf['single_step_ms']:.2f} ms), epoch f32 {tf['float32']['epoch_s']:.3f} s, "
+        f"bf16 {tf['bfloat16']['epoch_s']:.3f} s (single {tf['single_epoch_s']:.3f} s); rank 0's "
+        f"launches {res['launches']}; phase {time.perf_counter() - t0:.1f} s; card {card}")
     return res
 
 
-def cli_torchrun_phase(args, world: int, tmp: str):
-    """Phase 33: the collab command through torchrun with --num_shards W
-    for one epoch (W = 1: one rank, the single-device operand)."""
+def sbm_hybrid_flags(seed: int) -> list:
+    """SAGE on phase 19's 200-community SBM over the hybrid operand (the
+    tiled partition under --num_shards > 1), one epoch of one run."""
+    return [
+        "--data_name", f"synthetic:hits-sbm:num_nodes={SBM_NODES},num_edges={SBM_EDGES},"
+        f"num_communities={SBM_COMMUNITIES}",
+        "--adj_backend", "hybrid", "--eval_steps", "1", "--runs", "1", "--seed", str(seed),
+    ]
+
+
+def torchrun_commands(seed: int) -> dict:
+    """Phase 33's commands: the collab command, it with TRANSFORMER, and the
+    SBM command over the hybrid operand."""
+    return {
+        "collab": collab_flags(seed),
+        "collab TRANSFORMER": [*collab_flags(seed), "--encoder", "TRANSFORMER"],
+        "SBM hybrid": sbm_hybrid_flags(seed),
+    }
+
+
+def cli_torchrun_phase(args, world: int, tmp: str, label: str = "collab"):
+    """Phase 33: one of ``torchrun_commands`` through torchrun with
+    --num_shards W for one epoch (W = 1: one rank, the single-device
+    operand)."""
     root = os.path.dirname(os.path.abspath(__file__))
-    metrics = os.path.join(tmp, "torchrun.jsonl")
+    metrics = os.path.join(tmp, f"torchrun_{label.replace(' ', '_')}.jsonl")
     cmd = [
         sys.executable, "-m", "torch.distributed.run", "--standalone",
-        f"--nproc_per_node={world}", "-m", "plnlp_tpu_torch", *collab_flags(args.seed),
+        f"--nproc_per_node={world}", "-m", "plnlp_tpu_torch", *torchrun_commands(args.seed)[label],
         "--num_shards", str(world), "--epochs", "1", "--metrics_file", metrics,
     ]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -2607,17 +2932,21 @@ def cli_torchrun_phase(args, world: int, tmp: str):
     seconds = time.perf_counter() - t0
     lines = [line for line in r.stdout.splitlines() if line.strip()]
     for line in lines:
-        if line.startswith(("partition", "Run:", "Training Time")):
-            log(f"[torchrun] {line}")
+        if line.startswith(("partition", "Run:", "Training Time", "hybrid backend",
+                            "Total number")):
+            log(f"[torchrun] {label}: {line}")
     require(r.returncode == 0,
-            f"torchrun exited {r.returncode}: {(r.stderr or r.stdout)[-2000:]}")
+            f"torchrun {label} exited {r.returncode}: {(r.stderr or r.stdout)[-2000:]}")
     with open(metrics) as f:
         rows = [json.loads(line) for line in f]
     require(len(rows) == 1 and math.isfinite(rows[0]["loss"]), f"torchrun metrics {rows}")
     if world > 1:
         require(any(line.startswith(f"partition: S={world}") for line in lines),
-                "torchrun: no partition line")
-    log(f"[torchrun] --num_shards {world}: one epoch, loss {rows[0]['loss']:.4f}, epoch "
+                f"torchrun {label}: no partition line")
+        if label == "SBM hybrid":
+            require(any("tiles/shard=" in line for line in lines),
+                    "torchrun SBM hybrid: the partition is not tiled")
+    log(f"[torchrun] {label} --num_shards {world}: one epoch, loss {rows[0]['loss']:.4f}, epoch "
         f"{rows[0]['epoch_seconds']:.3f} s, {seconds:.1f} s in all")
     return rows[0]
 
@@ -2861,14 +3190,18 @@ def main() -> int:
         flash_bf16, tf_launches = transformer_bf16_path(args, dev, card, graph, graph_t, ds,
                                                         split, data, small, tmp)
         native_phase(args, data)
+        shard_tiles_phase(data, gen, card)
         del data, small
+        torch.cuda.empty_cache()
         shard_k1_phase(graph, graph_t, src, dst, gen, card)
         torch.cuda.empty_cache()
         par = parallel_path(args, card, tmp)
-        cli_torchrun_phase(args, par["world"], tmp)
+        for label in torchrun_commands(args.seed):
+            cli_torchrun_phase(args, par["world"], tmp, label)
     for entry, kernel in zip(train_kernels, ("K2", "K3", "K4", "K5")):
-        entry["launches"] += cli_launches[kernel]
+        entry["launches"] += cli_launches[kernel] + par["launches"][kernel]
     bf16_kernels[0]["launches"] += tf_launches["K1bf16"] + par["launches"]["K1bf16"]
+    bf16_kernels[1]["launches"] += par["launches"]["K2bf16"]
 
     kernels = [{
         "name": "scatter_matmul",

@@ -32,19 +32,25 @@ def default_device(device=None) -> torch.device:
     return dev
 
 
+from plnlp_tpu_torch.dense import DenseAdj, prepare_dense, to_dense  # noqa: E402
 from plnlp_tpu_torch.graph import (  # noqa: E402
     Graph,
     build_graph,
     prepare_graph,
+    transpose_graph,
     with_blocks,
 )
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "DenseAdj",
+    "prepare_dense",
+    "to_dense",
     "Graph",
     "build_graph",
     "prepare_graph",
+    "transpose_graph",
     "with_blocks",
     "default_device",
     "__version__",

@@ -399,19 +399,15 @@ def _device(args, device):
 
 def _check_ported(args, backend: Optional[str] = None) -> None:
     """Flag values that select code the port does not have yet raise, so
-    nothing else runs in their place: the partition of TRANSFORMER and of
-    the hybrid operand (``backend``: what ``--adj_backend`` came out as)."""
-    if args.num_shards <= 1:
-        return
-    if args.encoder.upper() == "TRANSFORMER":
+    nothing else runs in their place: TRANSFORMER over the tiled partition
+    (``--num_shards`` > 1 with ``backend``, what ``--adj_backend`` came out
+    as, hybrid)."""
+    if (args.num_shards > 1 and args.encoder.upper() == "TRANSFORMER"
+            and (backend or args.adj_backend) == "hybrid"):
         raise NotImplementedError(
-            f"--num_shards {args.num_shards} --encoder TRANSFORMER: the partitioned "
-            "TransformerConv is not ported yet (ROADMAP queue 1 item 11b)"
-        )
-    if (backend or args.adj_backend) == "hybrid":
-        raise NotImplementedError(
-            f"--num_shards {args.num_shards} over the hybrid operand: the tiled "
-            "partition is not ported yet (ROADMAP queue 1 item 11b)"
+            f"--num_shards {args.num_shards} --encoder TRANSFORMER over the hybrid operand: "
+            "TRANSFORMER over the tiled partition (K3-K5 on each shard, "
+            "parallel/tile_transformer.py) is not ported yet (ROADMAP queue 1 item 1)"
         )
 
 
@@ -542,11 +538,19 @@ def prepare_experiment(args, log=print, serving=False, device=None):
         # CLI): destination rows and the embedding table over the 'node' ranks
         from plnlp_tpu_torch.parallel import make_graph_parallel
 
+        # over hybrid the tiled partition: --tile_reorder sets the slot
+        # order, and an id space already relabeled to community order
+        # passes the identity order (no second sweep)
+        tiled = backend == "hybrid"
         t0 = time.perf_counter()
         graph = make_graph_parallel(
             *adj, num_nodes=num_nodes, mesh=mesh, block=block,
             comm=args.partition_comm, latency_rows=args.comm_latency_rows,
-            reorder=args.partition_reorder, log=log,
+            reorder=args.tile_reorder if tiled else args.partition_reorder,
+            tile=args.tile_size if tiled else 0, min_fill=args.tile_min_fill,
+            tile_dtype=args.compute_dtype,
+            order=np.arange(num_nodes, dtype=np.int64) if tiled and order is not None else None,
+            log=log,
         )
         pg = graph.pg
         log(
@@ -555,6 +559,8 @@ def prepare_experiment(args, log=print, serving=False, device=None):
             f"shard_nblk={pg.shard_nblk}"
             + (f" halo_quota={pg.halo_quota} halo_hubs={pg.halo_hubs}"
                if graph.comm == "halo" else "")
+            + (f" tiles/shard={pg.shard_tiles} dense_edges={pg.tile_dense_edges} "
+               f"store={pg.tile_store}" if pg.tile else "")
             + f" (built in {time.perf_counter() - t0:.2f} s)"
         )
     elif use_dense:
@@ -778,7 +784,7 @@ def _run_experiment(args, log, guard, device):
     # The reference creates the optimizer once and carries its state
     # across runs (model.py:85-96); --reset_optimizer starts each run clean.
     opt = model.make_optimizer()
-    emit(f"Total number of model parameters is {sum(p.numel() for p in model.parameters())}")
+    emit(f"Total number of model parameters is {model.param_count()}")
 
     meter = ThroughputMeter(sample_graph.num_edges, args.gnn_num_layers, args.batch_size)
     metrics = MetricsWriter((args.metrics_file or None) if rank0 else None)

@@ -32,6 +32,7 @@ __all__ = [
     "Graph",
     "build_graph",
     "prepare_graph",
+    "transpose_graph",
     "coalesce_edges",
     "to_undirected_edges",
     "add_self_loop_edges",
@@ -397,6 +398,17 @@ def prepare_graph(
         tmap = _tconv_map_np(blocks, blocks_t, block[0], block[0])
         g = dataclasses.replace(g, tconv_map=torch.from_numpy(tmap).to(device))
     return g, _to_graph(csr_t, blocks_t, device)
+
+
+def transpose_graph(graph: Graph) -> Graph:
+    """Aᵀ: senders and receivers swapped and re-sorted into CSR order, on
+    ``graph``'s device and blocked as ``graph`` is.  Reads the edge list
+    back to the host; :func:`prepare_graph` builds both at once."""
+    e = graph.num_edges
+    src, dst, w = (getattr(graph, k)[:e].cpu().numpy() for k in _CSR_ARRAYS[:3])
+    block = (graph.block_rows, graph.block_edges) if graph.block_rows else None
+    return build_graph(dst, src, w, num_nodes=graph.num_nodes, coalesce=False, block=block,
+                       device=graph.device)
 
 
 def with_blocks(graph: Graph, block_rows: int = 256, block_edges: int = 512) -> Graph:

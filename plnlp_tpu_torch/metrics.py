@@ -12,7 +12,7 @@ from typing import Dict, Tuple
 
 import torch
 
-__all__ = ["mrr", "evaluate_hits", "evaluate_mrr"]
+__all__ = ["hits_at_k", "mrr", "evaluate_hits", "evaluate_mrr"]
 
 
 def _hits_many(pos, neg, ks) -> Dict[int, float]:
@@ -25,6 +25,11 @@ def _hits_many(pos, neg, ks) -> Dict[int, float]:
         vals = torch.stack([(pos > top[k - 1]).float().mean() for k in live])
         out.update(zip(live, vals.tolist()))
     return out
+
+
+def hits_at_k(pos_pred, neg_pred, k: int) -> float:
+    """Hits@k: 1.0 when there are fewer than k negatives."""
+    return _hits_many(pos_pred, neg_pred, (k,))[k]
 
 
 def mrr(pos_pred, neg_pred) -> float:

@@ -18,12 +18,15 @@ no edges, and their cotangents are zero.
 * WSAGE — out = lin_rel(Σ_j w_ij x_j) + lin_root(x_i), D⁻¹A precomputed.
 * TRANSFORMER — TransformerConv (one head): α_ij = softmax_j(⟨W_q x_i,
   W_k x_j⟩/√d), out = W_skip x_i + Σ_j α_ij W_v x_j, adjacency values
-  ignored.  Dispatched in the JAX package's order: over a ``HybridGraph``
-  the block-sparse flash path (``ops/tile_attention.py``); over a blocked
-  ``Graph`` with ``tconv_map`` and a blocked transpose the hand-written
-  backward on K1 (``ops/transformer.py``); over a ``DenseAdj`` dense
-  attention masked where the adjacency is zero, with float32 logits and
-  softmax; otherwise the per-edge path below.
+  ignored.  Dispatched in the JAX package's order: over a
+  ``GraphParallel`` the partitioned TransformerConv on K1
+  (``parallel/graph_parallel.partitioned_transformer_conv``; x is this
+  rank's rows; a tiled partition raises, not ported yet); over a
+  ``HybridGraph`` the block-sparse flash path (``ops/tile_attention.py``);
+  over a blocked ``Graph`` with ``tconv_map`` and a blocked transpose the
+  hand-written backward on K1 (``ops/transformer.py``); over a
+  ``DenseAdj`` dense attention masked where the adjacency is zero, with
+  float32 logits and softmax; otherwise the per-edge path below.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from plnlp_tpu_torch.ops.sddmm import edge_softmax
 from plnlp_tpu_torch.ops.spmm import spmm
 from plnlp_tpu_torch.ops.tile_attention import hybrid_transformer_conv
 from plnlp_tpu_torch.ops.tile_spmm import HybridGraph
+from plnlp_tpu_torch.parallel.graph_parallel import GraphParallel, partitioned_transformer_conv
 
 ENCODER_NAMES = ("SAGE", "GCN", "WSAGE", "TRANSFORMER")
 
@@ -75,13 +79,12 @@ def _wsage_conv(lp, graph, graph_t, x):
 
 
 def _transformer_conv(lp, graph, graph_t, x):
+    if isinstance(graph, GraphParallel):
+        return partitioned_transformer_conv(graph, lp, x)
     if isinstance(graph, HybridGraph):
         return hybrid_transformer_conv(lp, graph, x)
     if not isinstance(graph, (Graph, DenseAdj)):
-        raise NotImplementedError(
-            f"TRANSFORMER over {type(graph).__name__} is not ported yet (the "
-            "partitioned TransformerConv: ROADMAP queue 1 item 11b)"
-        )
+        raise TypeError(f"unknown aggregation operand: {type(graph).__name__}")
     if (
         isinstance(graph, Graph) and graph.blk_src is not None and graph.tconv_map is not None
         and graph_t is not None and graph_t.blk_src is not None

@@ -271,6 +271,19 @@ def estimate_hybrid(
     }
 
 
+def _int8_exact(vals: np.ndarray) -> bool:
+    """True iff the tile values are integers in [-127, 127], so an int8
+    store is exact (an unweighted graph's edge counts)."""
+    return bool(np.all(vals == np.round(vals)) and (vals.size == 0 or np.abs(vals).max() <= 127))
+
+
+def _transpose_tiles(vals, trow, tcol):
+    """The transposed tile set (the backward): each tile transposed, its
+    coordinates swapped, re-sorted by row tile."""
+    order_t = np.lexsort((trow, tcol))
+    return np.ascontiguousarray(vals.transpose(0, 2, 1)[order_t]), tcol[order_t], trow[order_t]
+
+
 def _rowptr(rows: np.ndarray, n_rowtiles: int) -> np.ndarray:
     counts = np.bincount(rows, minlength=n_rowtiles)
     return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
@@ -335,14 +348,9 @@ def build_hybrid(
     if len(trow) == 0:
         # no tile qualifies: the one all-zero tile gets coordinates (0, 0)
         trow = tcol = np.zeros(1, np.int32)
-    # transposed set: swap coordinates, transpose each tile, re-sort by row
-    order_t = np.lexsort((trow, tcol))
-    vals_t = np.ascontiguousarray(vals.transpose(0, 2, 1)[order_t])
-    trow_t, tcol_t = tcol[order_t], trow[order_t]
-
+    vals_t, trow_t, tcol_t = _transpose_tiles(vals, trow, tcol)
     n_r = _pad_to(num_nodes, tile) // tile
-    exact = np.all(vals == np.round(vals)) and np.abs(vals).max() <= 127
-    store = torch.int8 if exact else COMPUTE_DTYPES[dtype]
+    store = torch.int8 if _int8_exact(vals) else COMPUTE_DTYPES[dtype]
 
     res_g = res_gt = None
     if len(r_src):

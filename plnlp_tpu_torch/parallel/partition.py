@@ -1,5 +1,5 @@
 """Graph partitioning for the multi-device SpMM (port of
-plnlp_tpu/parallel/partition.py, host NumPy, ``tile=0``).
+plnlp_tpu/parallel/partition.py, host NumPy).
 
 Destination rows are split into ``num_shards`` equal-capacity SLOT ranges
 (padded to a multiple of block_rows), one per rank of the mesh's ``node``
@@ -38,11 +38,6 @@ from plnlp_tpu_torch.graph import _blocks_np, _csr_np, _pad_to, _undirected_csr_
 
 __all__ = ["PartitionedGraph", "partition_graph", "with_halo", "assign_slots"]
 
-TILED_NOT_PORTED = (
-    "the tiled partition (tile > 0: K2's dense tiles on each shard) is not ported yet "
-    "(ROADMAP queue 1 item 11b, the next slice)"
-)
-
 
 @dataclasses.dataclass(frozen=True)
 class PartitionedGraph:
@@ -72,6 +67,16 @@ class PartitionedGraph:
     reorder: str = "none"
     shard_edges: Tuple[int, ...] = ()  # real edges per shard (forward)
     shard_nblk: Tuple[int, ...] = ()  # forward sub-blocks per shard
+    # the tiled partition (tile > 0): per shard {"vals" (nt, T, T), "row"
+    # (nt,) shard-local row tile, sorted, "col" (nt,) GLOBAL column tile,
+    # "rowptr" (rows_per_shard/T + 1,)}; vals int8 when exact, else
+    # float32 (placed in ``tile_store``)
+    tile: int = 0
+    tiles: Tuple[dict, ...] = ()
+    tiles_t: Tuple[dict, ...] = ()  # the transposed set, by source shard
+    tile_store: str = ""  # "int8", "float32" or "bfloat16"
+    tile_dense_edges: int = 0
+    shard_tiles: Tuple[int, ...] = ()  # real tiles per shard (forward)
 
     @property
     def padded_nodes(self) -> int:
@@ -87,6 +92,11 @@ def with_halo(pg: PartitionedGraph, hub_k: Optional[int] = None) -> PartitionedG
     """Attach the halo-exchange plans of both directions (host-side).
     ``hub_k``: rows read remotely by at least hub_k shards are replicated
     through an all_gather (default max(3, S//2+1)); see parallel.halo."""
+    if pg.tile:
+        raise ValueError(
+            "halo plans cover only the blocked structure; a tiled partition (tile > 0) "
+            "keeps its dense edges outside it: tiles require comm='all_gather'"
+        )
     from plnlp_tpu_torch.parallel.halo import build_halo_plan
 
     def build(blocks):
@@ -315,6 +325,56 @@ def _perms_from_node_map(node_map: np.ndarray, padded: int):
     return perm_in.astype(np.int32), perm_out.astype(np.int32)
 
 
+def _shard_tiles(vals, trow, tcol, num_shards: int, nrl: int):
+    """Split a row-sorted tile set by the shard of its row tile: one dict
+    a shard (its tiles, shard-local rows, global columns, row pointer)
+    and the real tile count of each shard."""
+    from plnlp_tpu_torch.ops.tile_spmm import _rowptr
+
+    shard = trow // nrl
+    out = []
+    for s in range(num_shards):
+        sel = shard == s
+        row = (trow[sel] - s * nrl).astype(np.int32)
+        out.append({
+            "vals": np.ascontiguousarray(vals[sel]),
+            "row": row,
+            "col": tcol[sel].astype(np.int32),
+            "rowptr": _rowptr(row, nrl),
+        })
+    return tuple(out), tuple(int(c) for c in np.bincount(shard, minlength=num_shards))
+
+
+def _tile_split(es, ed, ew, num_shards: int, rows_per_shard: int, tile: int, min_fill,
+                tile_dtype: str, max_tile_bytes: int):
+    """The tiled partition's dense part (as ``ops/tile_spmm.build_hybrid``
+    over the slot-relabelled edges at padded_nodes rows) and its residual
+    edges."""
+    from plnlp_tpu_torch.nn import COMPUTE_DTYPES
+    from plnlp_tpu_torch.ops.tile_spmm import _build_tiles, _int8_exact, _transpose_tiles
+
+    if tile_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"tile_dtype must be one of {sorted(COMPUTE_DTYPES)}, got {tile_dtype!r}")
+    if min_fill is None:
+        min_fill = max(int(0.0015 * tile * tile), 1)
+    max_tiles = max(int(max_tile_bytes // (tile * tile * 4)), 1)
+    vals, trow, tcol, residual, n_dense = _build_tiles(
+        es, ed, ew.astype(np.float32), num_shards * rows_per_shard, tile, min_fill,
+        max_tiles=max_tiles,
+    )
+    vals = vals[: len(trow)]  # no qualifying tile: no tile (K2 leaves its rows zero)
+    store = "int8" if _int8_exact(vals) else tile_dtype
+    if store == "int8":
+        vals = vals.astype(np.int8)
+    nrl = rows_per_shard // tile
+    tiles, counts = _shard_tiles(vals, trow, tcol, num_shards, nrl)
+    # the transposed set, grouped by the source shard
+    tiles_t, _ = _shard_tiles(*_transpose_tiles(vals, trow, tcol), num_shards, nrl)
+    fields = dict(tile=tile, tiles=tiles, tiles_t=tiles_t, tile_store=store,
+                  tile_dense_edges=n_dense, shard_tiles=counts)
+    return fields, residual
+
+
 def partition_graph(
     src,
     dst,
@@ -328,20 +388,26 @@ def partition_graph(
     reorder: Optional[str] = None,
     cap_factor: float = 1.5,
     tile: int = 0,
+    min_fill: Optional[int] = None,
+    tile_dtype: str = "float32",
+    max_tile_bytes: int = 2 * 1024**3,
     order=None,
 ) -> PartitionedGraph:
-    """Partition the edge list over ``num_shards`` destination-row shards
-    (``tile`` > 0, the tiled partition, raises: not ported yet)."""
-    if tile:
-        raise NotImplementedError(TILED_NOT_PORTED)
+    """Partition the edge list over ``num_shards`` destination-row shards.
+    ``tile`` > 0 builds the tiled partition (module note): ``min_fill``
+    defaults to ~0.15% of the tile area (96 at T = 256), ``max_tile_bytes``
+    bounds the f32 tile store by keeping the densest tiles, and tiles are
+    stored int8 when exact, else in ``tile_dtype``.  Use it with
+    reorder='labelprop': community-contiguous slots make the tiles dense."""
     R, B = block
+    align = int(np.lcm(R, tile)) if tile else R
     csr = _csr_np(src, dst, weight, num_nodes, symmetrize, coalesce)
     es = csr["senders"].astype(np.int64)
     ed = csr["receivers"].astype(np.int64)
     ew = csr["edge_weight"]
 
     node_map, rows_per_shard, resolved = assign_slots(
-        es, ed, num_nodes, num_shards, R, reorder, cap_factor, order=order
+        es, ed, num_nodes, num_shards, align, reorder, cap_factor, order=order
     )
     perm_in = perm_out = None
     if node_map is not None:
@@ -353,10 +419,19 @@ def partition_graph(
     shard_edges = tuple(
         int(c) for c in np.bincount(ed // rows_per_shard, minlength=num_shards)
     )
+    tile_fields = {}
+    if tile:
+        tile_fields, (es, ed, ew) = _tile_split(
+            es, ed, ew, num_shards, rows_per_shard, tile, min_fill, tile_dtype, max_tile_bytes
+        )
+        # the residual is sparse by construction: sub-blocks of at most 128
+        # edges, as build_hybrid's
+        B = min(B, 128)
     fwd, fwd_nblk = _shard_blocks(es, ed, ew, num_shards, rows_per_shard, R, B)
     # backward: the same edges grouped by SOURCE shard
     bwd, _ = _shard_blocks(ed, es, ew, num_shards, rows_per_shard, R, B)
     return PartitionedGraph(
+        **tile_fields,
         fwd=fwd,
         bwd=bwd,
         bwd_gather_fwd=_bwd_gather_fwd_np(fwd, bwd, rows_per_shard, R),

@@ -191,6 +191,16 @@ class Model(nn.Module):
             )
         return self
 
+    def param_count(self) -> int:
+        """Total parameter count, frozen embeddings included (the
+        reference's para_list accounting), with the table counted at
+        num_nodes rows whatever rows this rank holds."""
+        rest = sum(p.numel() for p in self.parameters() if p is not self.emb)
+        if self.emb is None:
+            return rest
+        rows = self.emb.shape[0] if self.row_placement is None else self.num_nodes
+        return rest + rows * self.emb.shape[1]
+
     def _check_operand(self, graph) -> None:
         if isinstance(graph, GraphParallel) and graph is not self.row_placement:
             raise ValueError(

@@ -5,9 +5,8 @@
   parameter bits and Logger results as the run without the break.
 * ``--score_pairs`` equals the restored model's Scorer, under the hybrid
   relabel too, with pairs in original ids.
-* Flag values whose code is not ported (the partition of TRANSFORMER and
-  of the hybrid operand) raise NotImplementedError naming their ROADMAP
-  item.
+* Flag values whose code is not ported (TRANSFORMER over the tiled
+  partition) raise NotImplementedError naming their ROADMAP item.
 
 The JAX ``run_experiment`` is never called (its compiles cost seconds a
 case); the two packages' random draws never agree, so runs are compared
@@ -156,12 +155,20 @@ def test_score_pairs_equals_restored_scorer(tmp_path, train_backend):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (dict(num_shards=2, encoder="TRANSFORMER"), "item 11b"),
-    (dict(num_shards=2, adj_backend="hybrid"), "item 11b"),
+    pytest.param(dict(num_shards=2, encoder="TRANSFORMER", adj_backend="hybrid"),
+                 "queue 1 item 1\\b", id="hybrid"),
+    pytest.param(dict(num_shards=2, encoder="TRANSFORMER", data_name=SBM, **TILES),
+                 "queue 1 item 1\\b", id="auto-hybrid"),
 ])
-def test_unported_flags_raise(flag, item):
+def test_unported_flags_raise(flag, item, monkeypatch):
+    """TRANSFORMER over the tiled partition, with --adj_backend hybrid
+    and with auto choosing hybrid (after its estimate; the mesh, which
+    needs torchrun's process group, is stubbed out: the check comes
+    before the partition is built)."""
+    args = _args(**flag)
+    monkeypatch.setattr(cli, "_make_mesh", lambda *_: None)
     with pytest.raises(NotImplementedError, match=item):
-        _run(_args(**flag))
+        _run(args)
 
 
 @pytest.mark.parametrize("backend", ["csr", "hybrid"])

@@ -13,6 +13,10 @@
 * ``Scorer.rank_candidates_batch(exclude_edges=True)`` over a ``DenseAdj``
   returns the JAX Scorer's ids, with and without ``candidates=``; no known
   neighbor is ranked.
+* The package-level names of ``plnlp_tpu/__init__.py`` (``DenseAdj``,
+  ``prepare_dense``, ``to_dense``, ``transpose_graph``, ...) exist in the
+  port; ``graph.transpose_graph`` gives the JAX package's edge list, and
+  its blocked SpMM equals JAX's Aᵀ x (rtol = 1e-5, atol = 1e-6).
 """
 
 import jax
@@ -22,6 +26,8 @@ import pytest
 import torch
 
 import plnlp_tpu.dense as jdense
+import plnlp_tpu.graph as jgraph
+from plnlp_tpu.graph import transpose_graph as jtranspose_graph
 from plnlp_tpu.models.encoders import apply_encoder, init_encoder
 from plnlp_tpu.ops.spmm import spmm as jspmm
 from plnlp_tpu.serve import Scorer as JaxScorer
@@ -147,3 +153,40 @@ def test_scorer_excludes_edges_over_dense_matches_jax():
         np.testing.assert_allclose(scores, scores_j, rtol=1e-5, atol=1e-6)
         for row, s in zip(ids, srcs):
             assert not adj[s, row].any()  # no known neighbor ranked
+
+
+def test_package_level_names_match_jax():
+    import plnlp_tpu
+    import plnlp_tpu_torch
+
+    names = ("DenseAdj", "prepare_dense", "to_dense", "Graph", "build_graph", "prepare_graph",
+             "transpose_graph", "with_blocks")
+    for name in names:
+        assert hasattr(plnlp_tpu, name), name
+    assert plnlp_tpu_torch.DenseAdj is tdense.DenseAdj
+    assert plnlp_tpu_torch.prepare_dense is tdense.prepare_dense
+    assert plnlp_tpu_torch.to_dense is tdense.to_dense
+    assert plnlp_tpu_torch.transpose_graph is tgraph.transpose_graph
+    assert set(names) <= set(plnlp_tpu_torch.__all__)
+    src, dst, w = _edges()
+    got = plnlp_tpu_torch.prepare_dense(src, dst, w, num_nodes=N, device="cpu")
+    want = plnlp_tpu.prepare_dense(src, dst, w, num_nodes=N)
+    np.testing.assert_array_equal(got.adj.numpy(), np.asarray(want.adj))
+
+
+@pytest.mark.parametrize("block", [None, (8, 32)])
+def test_transpose_graph_matches_jax(block):
+    src, dst, w = _edges()
+    got = tgraph.transpose_graph(tgraph.build_graph(src, dst, w, num_nodes=N, block=block,
+                                                    device="cpu"))
+    want = jtranspose_graph(jgraph.build_graph(src, dst, w, num_nodes=N, block=block))
+    e = want.num_edges
+    assert got.num_edges == e and got.num_nodes == N
+    for k in ("senders", "receivers", "edge_weight"):
+        np.testing.assert_array_equal(getattr(got, k).numpy(), np.asarray(getattr(want, k))[:e],
+                                      err_msg=k)
+    np.testing.assert_array_equal(got.indptr.numpy(), np.asarray(want.indptr))
+    assert (got.block_rows, got.block_edges) == ((0, 0) if block is None else block)
+    x = np.random.default_rng(4).standard_normal((N, D)).astype(np.float32)
+    np.testing.assert_allclose(spmm(got, torch.from_numpy(x)).numpy(),
+                               np.asarray(jspmm(want, jnp.asarray(x))), **TOL)

@@ -24,7 +24,12 @@ def test_port_imports_neither_jax_nor_plnlp_tpu():
         "plnlp_tpu_torch.ops.sddmm, plnlp_tpu_torch.dense, plnlp_tpu_torch.logger, "
         "plnlp_tpu_torch.data.custom, plnlp_tpu_torch.data.ogb, plnlp_tpu_torch.ops.walk, "
         "plnlp_tpu_torch.augment, plnlp_tpu_torch.profiling, plnlp_tpu_torch.checkpoint, "
-        "plnlp_tpu_torch.resilience, plnlp_tpu_torch.cli, plnlp_tpu_torch.__main__, sys; "
+        "plnlp_tpu_torch.resilience, plnlp_tpu_torch.cli, plnlp_tpu_torch.__main__, "
+        "plnlp_tpu_torch.parallel, plnlp_tpu_torch.parallel.partition, "
+        "plnlp_tpu_torch.parallel.graph_parallel, plnlp_tpu_torch.parallel.halo, "
+        "plnlp_tpu_torch.parallel.mesh, plnlp_tpu_torch.parallel.sharded, "
+        "plnlp_tpu_torch.parallel.multihost, plnlp_tpu_torch.native, plnlp_tpu_torch.tuning, "
+        "plnlp_tpu_torch.ops.transformer, sys; "
         "bad = [m for m in sys.modules if m == 'jax' or m == 'plnlp_tpu' "
         "or m.startswith(('jax.', 'plnlp_tpu.'))]; "
         "assert not bad, bad"

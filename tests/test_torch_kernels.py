@@ -16,7 +16,12 @@ from plnlp_tpu_torch.ops import scatter_matmul as sm
 from plnlp_tpu_torch.ops import tile_matmul as tm
 from plnlp_tpu_torch.ops import tile_spmm as tts
 from plnlp_tpu_torch.ops.spmm import _mean_scale, spmm
-import tests.torch_cpu  # noqa: F401  (one PyTorch thread a test process)
+
+# One PyTorch thread a test process, as tests/torch_cpu.py sets it for the
+# other port files; set here so this file runs on its own with
+# --noconftest, where a site package named ``tests`` can shadow the
+# repository's tests directory.
+torch.set_num_threads(1)
 
 
 @pytest.fixture
@@ -148,6 +153,41 @@ def test_tile_matmul_matches_plain_version(store, t, d, fill):
     assert _within_sum_tolerance(got, want, abs_sum)
     for r in (2, 5):
         assert not got[r * t: (r + 1) * t].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shard", ["tiles", "no-tiles"])
+def test_tile_matmul_over_gathered_buffer(shard, x_dtype):
+    """K2 as a tiled partition's shard runs it: x is the gathered buffer of
+    3 shards (3 x 256 rows), the output the shard's 256 rows (out_rows
+    shorter than x), its tiles' rows shard-local and their columns global;
+    a shard with no tile at all writes zeros.  Against the plain version,
+    a second launch bitwise equal."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    t, d, n_r, shards = 64, 128, 4, 3
+    rows = n_r * t
+    nt = 9 if shard == "tiles" else 0
+    trow = torch.sort(torch.randint(0, n_r - 1, (nt,), device="cuda", generator=gen)).values.int()
+    tcol = torch.randint(0, shards * n_r, (nt,), device="cuda", generator=gen).int()
+    ptr = torch.cat([trow.new_zeros(1), torch.bincount(trow, minlength=n_r).cumsum(0).int()])
+    mask = torch.rand(nt, t, t, device="cuda", generator=gen) < 0.05
+    vals = (mask * torch.randint(-2, 3, (nt, t, t), device="cuda", generator=gen)).to(torch.int8)
+    x = torch.randn(shards * rows, d, device="cuda", generator=gen).to(x_dtype)
+    got = tm.tile_matmul(vals, trow, tcol, ptr, x, rows)
+    again = tm.tile_matmul(vals, trow, tcol, ptr, x, rows)
+    torch.cuda.synchronize()
+    assert got.shape == (rows, d) and got.dtype == x_dtype and torch.equal(got, again)
+    want = tm.tile_matmul_reference(vals, trow, tcol, x, n_r, rows)
+    abs_sum = tm.tile_matmul_reference(vals.abs(), trow, tcol, x.float().abs(), n_r, rows)
+    if x_dtype == torch.float32:
+        assert _within_sum_tolerance(got, want, abs_sum)
+    else:
+        assert _within_bf16_tolerance(got, want, abs_sum)
+    assert not got[(n_r - 1) * t:].any()  # the last row tile has no tile
+    if shard == "no-tiles":
+        assert not got.any()
 
 
 def _within_bf16_tolerance(got, want, abs_sum):

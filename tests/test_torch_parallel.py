@@ -36,28 +36,25 @@ limit of its own, so a rank that raises cannot hang the suite.
   (the two packages' CLIs draw batches and negatives from different
   generators, so whole epochs are held to the port's own single-device
   run, and single steps to the JAX package's above):
-  epoch loss within rtol 1e-5, parameters within 1e-4; the S = 2
+  epoch loss within rtol 1e-5, parameters within 1e-4, and rank 0 logs
+  the parameter count with the table counted whole (2672); the S = 2
   checkpoint restored at S = 1 gives the trained parameters' bits and the
   run resumes from it; a single-device checkpoint resumes at S = 2 over
   halo and ends its next epoch where the single-device resume does.
 """
 
 import contextlib
-import datetime
 import io
 import json
 import os
-import pickle
-import socket
-import time
 
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 
 import tests.torch_cpu  # noqa: F401  (one PyTorch thread a test process)
+from tests.torch_ranks import spawn
 
 N, D, E = 100, 16, 600  # the partitioned_spmm graph (tests/test_graph_parallel.py)
 NS, ES, B = 64, 400, 64  # the train step (tests/test_parallel.py)
@@ -67,7 +64,6 @@ STEP_REORDER = {(1, 2): "bfs", (2, 2): "degree"}
 STEP_LOSSES = ("AUC", "CE")  # a sum and a mean
 CLI_MESHES = {"s2": (dict(num_shards=2), 2), "d2": (dict(mesh_data=2), 2),
               "d2s2": (dict(num_shards=2, mesh_data=2), 4)}
-WALL_S = 150
 
 
 def _graph(seed=0, n=N, e=E):
@@ -107,11 +103,11 @@ def _cli_argv(tmp, tag, **kw):
     return [f"--{k}={v}" for k, v in flags.items()]
 
 
-def _run_cli(argv):
+def _run_cli(argv, log=lambda *_: None):
     from plnlp_tpu_torch import cli
 
     with contextlib.redirect_stdout(io.StringIO()):
-        loggers = cli.run_experiment(cli.argument(argv), log=lambda *_: None, device="cpu")
+        loggers = cli.run_experiment(cli.argument(argv), log=log, device="cpu")
     return {k: lg.results for k, lg in loggers.items()}
 
 
@@ -227,55 +223,13 @@ def _predict_case(jax_params, pairs):
 def _cli_case(tmp, tag, flags):
     from plnlp_tpu_torch.checkpoint import CheckpointManager
 
-    results = _run_cli(_cli_argv(tmp, tag, **flags))
+    lines = []
+    results = _run_cli(_cli_argv(tmp, tag, **flags), log=lambda m: lines.append(str(m)))
     if dist.get_rank() != 0:  # rank 0 alone writes checkpoints
         return None
     ck = CheckpointManager(os.path.join(tmp, tag, "ck"))
     state, _, _ = ck.restore(device="cpu")
-    return {"results": results, "state": {k: v.numpy() for k, v in state.items()}}
-
-
-def _rank_main(rank, world, port, out_path, cases):
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
-                            rank=rank, timeout=datetime.timedelta(seconds=60))
-    try:
-        results = {name: globals()[fn](*args) for name, fn, args in cases}
-        if rank == 0:
-            with open(out_path, "wb") as f:
-                pickle.dump(results, f)
-    finally:
-        dist.destroy_process_group()
-
-
-def _spawn(worlds, tmp_path):
-    """Run each {world size: cases} as its own process group, all at once;
-    {world size: rank 0's results}."""
-    runs = {}
-    for world, cases in worlds.items():
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            port = sock.getsockname()[1]
-        out = str(tmp_path / f"world{world}.pkl")
-        runs[world] = (out, mp.start_processes(
-            _rank_main, args=(world, port, out, cases), nprocs=world, join=False,
-            start_method="spawn"))
-    deadline = time.monotonic() + WALL_S
-    try:
-        for world, (_, ctx) in runs.items():
-            while not ctx.join(timeout=1):
-                if time.monotonic() > deadline:
-                    raise TimeoutError(f"the {world}-rank group ran past {WALL_S} s")
-    finally:
-        for _, ctx in runs.values():
-            for proc in ctx.processes:
-                if proc.is_alive():
-                    proc.kill()
-    results = {}
-    for world, (out, _) in runs.items():
-        with open(out, "rb") as f:
-            results[world] = pickle.load(f)  # written by this module's own ranks
-    return results
+    return {"results": results, "state": {k: v.numpy() for k, v in state.items()}, "log": lines}
 
 
 # --- the test process's side ----------------------------------------------------
@@ -319,7 +273,7 @@ def single(cli_tmp):
 def ranks(jax_params, jax_cli, cli_tmp, single, tmp_path_factory):
     """Rank 0's results of the 2-rank and the 4-rank group, run at once."""
     p, pc = jax_params[1], jax_cli["params"]
-    return _spawn({
+    return spawn({
         2: [
             ("spmm", "_spmm_cases", (2,)),
             ("step_1_2", "_step_case", (1, 2, p)),
@@ -339,7 +293,7 @@ def ranks(jax_params, jax_cli, cli_tmp, single, tmp_path_factory):
             ("cli_d2s2", "_cli_case", (cli_tmp, "d2s2", dict(num_shards=2, mesh_data=2))),
             ("cli_step_d2s2", "_cli_step_case", (cli_tmp, "d2s2", pc)),
         ],
-    }, tmp_path_factory.mktemp("ranks"))
+    }, tmp_path_factory.mktemp("ranks"), __name__)
 
 
 @pytest.mark.parametrize("reorder", [None, "edges", "degree", "bfs"])
@@ -595,6 +549,8 @@ def test_cli_multi_rank_matches_single_device(tag, world, ranks, single, cli_tmp
     from plnlp_tpu_torch.checkpoint import CheckpointManager
 
     got = ranks[world][f"cli_{tag}"]
+    # the table counted whole (300 x 8 + 272), whatever rows rank 0 holds
+    assert "Total number of model parameters is 2672" in got["log"]
     want_results, want_loss = single
     with open(os.path.join(cli_tmp, tag, "metrics.jsonl")) as f:
         lines = f.read().splitlines()

@@ -1,7 +1,8 @@
 """plnlp_tpu_torch serving path against plnlp_tpu (CPU): encoders,
-metrics and Model.test, with the JAX weights carried over by
-``params_from_jax``; the predictors and the Scorer are held in
-tests/test_torch_scorer.py.
+metrics (``hits_at_k`` too) and Model.test, with the JAX weights carried
+over by ``params_from_jax``; ``Model.param_count`` (frozen tables counted,
+a row-sharded table at num_nodes rows); the predictors and the Scorer are
+held in tests/test_torch_scorer.py.
 
 Tolerance through the model: float32 at rtol = atol = 1e-4 (sums and
 matmuls in another order).
@@ -95,6 +96,7 @@ def test_input_layer_sizing_matches_jax(use_feats, train_emb, pretrained):
     assert (tm.input_dim, tm.emb_dim, tm.emb_trainable) == (
         jm.input_dim, jm.emb_dim, jm.emb_trainable
     )
+    assert tm.param_count() == jm.param_count(jp)  # a frozen table counts too
     params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tm)
     want = jm._encode(jp, jg, jgt, jnp.asarray(feats) if use_feats else None)
     got = tm.encode(tg, tgt, feats if use_feats else None)
@@ -117,6 +119,35 @@ def test_metrics_match_jax(rng):
     got_m = tmetrics.evaluate_mrr(pos_m, neg_m, pos_m[:10], neg_m[:10])
     want_m = jmetrics.evaluate_mrr(pos_m, neg_m, pos_m[:10], neg_m[:10])
     np.testing.assert_allclose(got_m["MRR"], want_m["MRR"], rtol=1e-6)
+
+
+def test_hits_at_k_matches_jax(rng):
+    pos = rng.standard_normal(300).astype(np.float32)
+    neg = rng.standard_normal(80).astype(np.float32)
+    for k in (1, 20, 50, 80, 81, 100):  # past #neg: 1.0
+        got, want = tmetrics.hits_at_k(pos, neg, k), jmetrics.hits_at_k(pos, neg, k)
+        assert isinstance(got, float)
+        np.testing.assert_allclose(got, want, rtol=1e-6, err_msg=f"k={k}")
+    assert tmetrics.hits_at_k(pos, neg, 81) == 1.0
+
+
+@pytest.mark.parametrize("encoder,predictor", [("SAGE", "MLP"), ("TRANSFORMER", "DOT")])
+def test_param_count_matches_jax(encoder, predictor):
+    """The reference's para_list count; a table row-sharded over a
+    partition (here one shard of padded slot rows) still counts at
+    num_nodes rows, as the JAX package's global table does."""
+    import copy
+
+    from plnlp_tpu_torch.parallel import make_graph_parallel, make_mesh
+
+    jm, jp, tm = _models(encoder, predictor)
+    assert tm.param_count() == jm.param_count(jp) == sum(p.numel() for p in tm.parameters())
+    tg = _graphs("SAGE")[0]
+    gp = make_graph_parallel(tg.senders.numpy(), tg.receivers.numpy(), num_nodes=N,
+                             mesh=make_mesh(1, 1), block=(64, 32))
+    sharded = copy.deepcopy(tm).place_rows(gp)
+    assert sharded.emb.shape[0] == gp.rows_per_shard > N
+    assert sharded.param_count() == jm.param_count(jp)
 
 
 @pytest.mark.parametrize("metric", ["hits", "mrr"])
@@ -159,9 +190,15 @@ def test_params_from_jax_rejects_mismatches():
 
 
 def test_model_rejects_unported_options():
-    # TRANSFORMER is ported over a HybridGraph, a DenseAdj and a CSR Graph;
-    # other operands (GraphParallel) are not
-    tm = Model(ModelConfig(encoder="TRANSFORMER", emb_hidden_channels=4,
-                           gnn_hidden_channels=4), num_nodes=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="TRANSFORMER over"):
+    # TRANSFORMER is ported over every operand but the tiled partition
+    # (K3-K5 on each shard); an operand of no known type is a TypeError
+    from plnlp_tpu_torch.parallel import make_graph_parallel, make_mesh
+
+    cfg = ModelConfig(encoder="TRANSFORMER", emb_hidden_channels=4, gnn_hidden_channels=4)
+    tm = Model(cfg, num_nodes=4, device="cpu")
+    with pytest.raises(TypeError, match="unknown aggregation operand"):
         tm.encode(object())
+    gp = make_graph_parallel([0, 1, 2, 3], [1, 2, 3, 0], num_nodes=4, mesh=make_mesh(1, 1),
+                             block=(16, 32), tile=16)
+    with pytest.raises(NotImplementedError, match="TRANSFORMER over a tiled partition"):
+        tm.place_rows(gp).encode(gp)
