@@ -156,6 +156,23 @@ Phases (any failure exits non-zero):
    term beside it: the two split the edges between tiles and residual
    differently, and each part is rounded once), with the per-shard K2 and
    K1 times beside the single operand's and the host build time;
+31d. K3, K4 and K5 at split row counts on each shard of that partition, in
+   one process with no collective: q, k, v of one TRANSFORMER layer (width
+   256) and a cotangent for every slot; each shard launches K3 and K4 with
+   q (and g and the stats) of its own rows_per_shard rows and k, v of the
+   4 x rows_per_shard gathered rows, and K5 with k, v of its own rows and
+   q, g and the stats of the gathered ones; each launch against its plain
+   version at phase 12's tolerances (27's in bf16), a second launch
+   bitwise equal, rows with no tile edge (0, 0, -inf) from K3 and zero
+   from K4 and K5; then the layer as each shard computes it
+   (``parallel/tile_transformer.py``: K3 and the residual through K1,
+   merged), reassembled through the slot permutation, against
+   ``hybrid_transformer_conv`` over the single operand (1e-5 + 1e-6
+   sum|terms| in f32; in bf16 one bf16 ulp of each term and two of the
+   result beside it), and the shards' dq, dk, dv against the single
+   operand's ``FlashAttn`` backward (relative L2 1e-4 in f32, 3e-2 in
+   bf16); in f32 and bf16, with the per-shard K3/K4/K5 times beside the
+   single operand's;
 32. the partitioned path (``parallel/``) on W = min(cards, 4) ranks, one
    process and one card each over NCCL (W = 1 on a one-card machine), at
    collab's shape (2-layer SAGE, width 256, batch 65,536) over
@@ -178,14 +195,25 @@ Phases (any failure exits non-zero):
    the CLI builds it): the encode against the single hybrid operand's
    (1e-5 + 1e-6 sum|terms|), K2 2 and K1 2 launches an encode and 4 of
    each a step on every rank, one epoch in f32 and one in bf16 (only the
-   bf16 entries), step times beside the single operand's;
+   bf16 entries), step times beside the single operand's; and (c)
+   TRANSFORMER over that tiled partition (``parallel/tile_transformer.py``):
+   one layer (width 256) and its input and parameter gradients (summed
+   over the ranks) against ``hybrid_transformer_conv`` over the single
+   operand, in f32 and bf16, K3 1 and K1 1 launches forward and K4 1, K5 1
+   and K1 3 backward in x's dtype only; one epoch of TRANSFORMER + MLP +
+   AUC (2 layers, batch 65,536, Adam) in each dtype, K3, K4, K5 2 and K1 8
+   a step, with step and epoch times beside the single hybrid operand's
+   (measured on the rank's card, and phases 16's and 28's); with W = 4
+   also (data, node) = (2, 2);
 33. through ``torchrun --nproc_per_node=W -m plnlp_tpu_torch --num_shards
    W`` for one epoch each: the collab command, it with ``--encoder
-   TRANSFORMER``, and SAGE on phase 19's SBM with ``--adj_backend
-   hybrid`` (the tiled partition at W > 1);
+   TRANSFORMER``, and phase 19's SBM with ``--adj_backend hybrid`` with
+   SAGE and with ``--encoder TRANSFORMER`` (the tiled partition at W > 1);
 34. print the card's name and power limit, the ``{"kernels": [...]}`` line
-   (K1 to K5, the bf16 K1 and K2, and the bf16 K3, K4 and K5), and
-   ``{"ok": true, "device": {...}}`` as the last line.
+   (K1 to K5, the bf16 K1 and K2, and the bf16 K3, K4 and K5; the K3-K5
+   entries also give ``split_launches``, their launches at split row
+   counts in phase 31d), and ``{"ok": true, "device": {...}}`` as the last
+   line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -671,15 +699,24 @@ def flash_bwd_magnitudes(vals, tile_row, tile_col, q, k, v, g, stats, scale, tra
     """The sums of the terms' magnitudes of K4's dq (the row-sorted set) or
     of K5's dk and dv (``transposed``), chunk by chunk as the plain versions
     run: Σ_j |ds_ij| |k_j| with |ds| bounded by α (|g|·|v| + |δ|) scale, and
-    Σ α |g| for dv."""
+    Σ α |g| for dv.  The own arrays (K4 q, g, stats; K5 k, v) and the
+    gathered ones (K4 k, v; K5 q, g, stats) may differ in rows."""
     import torch
 
-    from plnlp_tpu_torch.ops.flash_tiles import _chunks, _row_stats, _tiles
+    from plnlp_tpu_torch.ops.flash_tiles import _chunks, _gathered_tiles, _row_stats, _tiles
 
-    t, (rows, d) = vals.shape[1], q.shape
-    n_r = -(-rows // t)
-    qt, kt, vt, gt = (_tiles(a, n_r, t) for a in (q, k, v, g))
-    m, den, delta = _row_stats(stats, n_r, t)
+    t, d = vals.shape[1], q.shape[1]
+    own, gathered = ((k, v), (q, g)) if transposed else ((q, g), (k, v))
+    rows = own[0].shape[0]
+    n_r, n_g = _gathered_tiles(rows, t), _gathered_tiles(gathered[0].shape[0], t)
+    if transposed:
+        kt, vt = (_tiles(a, n_r, t) for a in own)
+        qt, gt = (_tiles(a, n_g, t) for a in gathered)
+        m, den, delta = _row_stats(stats, n_g, t)
+    else:
+        qt, gt = (_tiles(a, n_r, t) for a in own)
+        kt, vt = (_tiles(a, n_g, t) for a in gathered)
+        m, den, delta = _row_stats(stats, n_r, t)
     out = [qt.new_zeros((n_r, t, d)) for _ in range(2 if transposed else 1)]
     for c in _chunks(vals.shape[0]):
         r, cc = tile_row[c].long(), tile_col[c].long()
@@ -716,7 +753,8 @@ def fwd_errors(num, ml, num_r, ml_r, num_a, sum_rtol=SUM_RTOL):
              / (SUM_ATOL + sum_rtol * num_a / den_r)[has])
     m_err = (ml[has, 0] - ml_r[has, 0]).abs() / (1e-6 * (1 + ml_r[has, 0].abs()))
     den_err = (ml[has, 1] - ml_r[has, 1]).abs() / (1e-5 * ml_r[has, 1])
-    ratio = max(float(y_err.max()), float(m_err.max()), float(den_err.max()))
+    # (a shard may hold no tile: then no row has a tile edge)
+    ratio = max((float(e.max()) for e in (y_err, m_err, den_err) if e.numel()), default=0.0)
     empty_ok = (not num[~has].any() and not ml[~has, 1].any()
                 and bool(torch.isneginf(ml[~has, 0]).all()))
     return ratio, empty_ok, has
@@ -800,6 +838,90 @@ def check_flash_kernels(fwd_set, bwd_set, q, k, v, g, n):
             require(not a[n:].any(), f"flash_tiles_{kind} {name}: rows past num_nodes not zero")
         del got, again, want, mags
     return stats, errs
+
+
+def check_flash_split(shards, q, k, v, g, rps):
+    """Phase 31d: K3, K4 and K5 at split row counts, as each shard of a
+    tiled partition runs them.  q, k, v, g are the gathered (S * rps, D)
+    arrays in slot order; ``shards[s]`` is shard s's (fwd_set, bwd_set)
+    (rows shard-local, columns global), and shard s owns rows [s * rps,
+    (s + 1) * rps).  K3 and K4 take q (and g and the stats) of the own rows
+    and k, v of the gathered ones; K5 k, v of the own rows and q, g and the
+    stats of the gathered ones.  Each launch is held against its plain
+    version at phase 12's tolerances (27's in bf16), a second launch must
+    give the same bits, and rows with no tile edge must come out (0, 0,
+    -inf) from K3 and zero from K4 and K5.  Returns the stats (M, den, δ)
+    of every row and each kernel's max abs error."""
+    import torch
+
+    from plnlp_tpu_torch.ops import flash_tiles as ft
+
+    scale = 1.0 / math.sqrt(q.shape[1])
+    bf16 = q.dtype == torch.bfloat16
+    sum_rtol = SUM_RTOL + (BF16_RTOL if bf16 else 0.0)
+    label = " bf16" if bf16 else ""
+    errs = dict.fromkeys(("fwd", "dq", "dkv"), 0.0)
+    stats, empty = [], []
+    for s, (fwd_set, _) in enumerate(shards):
+        own = slice(s * rps, (s + 1) * rps)
+        n_r = fwd_set[3].shape[0] - 1
+        num, ml = ft.flash_tiles_fwd(*fwd_set, q[own], k, v, scale)
+        again = ft.flash_tiles_fwd(*fwd_set, q[own], k, v, scale)
+        num_r, ml_r = ft.flash_tiles_fwd_reference(*fwd_set[:3], q[own], k, v, n_r, scale)
+        num_a, _ = ft.flash_tiles_fwd_reference(*fwd_set[:3], q[own], k, v.abs(), n_r, scale)
+        torch.cuda.synchronize()
+        require(torch.equal(num, again[0]) and torch.equal(ml, again[1]),
+                f"flash_tiles_fwd{label} shard {s}: a second launch differs")
+        ratio, empty_ok, has = fwd_errors(num, ml, num_r, ml_r, num_a, sum_rtol)
+        errs["fwd"] = max(errs["fwd"], float((num - num_r).abs().max()))
+        log(f"[shard-flash] K3{label} shard {s} ({rps} own rows, {q.shape[0]} gathered): max err/"
+            f"tol {ratio:.3f}; {int(has.sum())} rows with a tile edge, the rest (0, 0, -inf): "
+            f"{empty_ok}; a second launch the same bits")
+        require(ratio <= 1.0 and empty_ok,
+                f"flash_tiles_fwd{label} shard {s} disagrees with its plain version")
+        m_glob = torch.where(torch.isfinite(ml_r[:, 0]), ml_r[:, 0], 0.0)
+        den_glob = ml_r[:, 1].clamp(min=torch.finfo(torch.float32).tiny)
+        delta = (g[own].float() * num_r / den_glob[:, None]).sum(-1)
+        stats.append(torch.stack([m_glob, den_glob, delta], 1))
+        empty.append(~has)
+        del num, ml, again, num_r, num_a
+    stats_full = torch.cat(stats).contiguous()
+    for s, (fwd_set, bwd_set) in enumerate(shards):
+        own = slice(s * rps, (s + 1) * rps)
+        n_r = fwd_set[3].shape[0] - 1
+        for kind, tiles in (("dq", fwd_set), ("dkv", bwd_set)):
+            if kind == "dq":
+                feats = (q[own], k, v, g[own], stats_full[own])
+                fn, ref = ft.flash_tiles_dq, ft.flash_tiles_dq_reference
+            else:
+                feats = (q, k[own], v[own], g, stats_full)
+                fn, ref = ft.flash_tiles_dkv, ft.flash_tiles_dkv_reference
+            got, again = fn(*tiles, *feats, scale), fn(*tiles, *feats, scale)
+            want = ref(*tiles[:3], *feats, n_r, scale)
+            mags = flash_bwd_magnitudes(*tiles[:3], *feats, scale, kind == "dkv")
+            if kind == "dq":
+                got, again, want = [got], [again], [want]
+            torch.cuda.synchronize()
+            require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                    f"flash_tiles_{kind}{label} shard {s}: a second launch differs")
+            # K4 writes 0 on a row with no tile edge; K5 on a source row
+            # whose row tile of the transposed set holds no tile
+            idle = (empty[s] if kind == "dq" else
+                    (torch.diff(tiles[3]) == 0).repeat_interleave(tiles[0].shape[1])[:rps])
+            ratios = []
+            for name, a, b, sc in zip(("dq",) if kind == "dq" else ("dk", "dv"), got, want, mags):
+                ea, ratio, ok = sum_errors(a, b, sc, sum_rtol=sum_rtol)
+                errs[kind] = max(errs[kind], ea)
+                ratios.append(ratio)
+                require(ok, f"flash_tiles_{kind}{label} shard {s} {name} disagrees with its "
+                            f"plain version (err/tol {ratio:.3f})")
+                require(not a[idle].any(), f"flash_tiles_{kind}{label} shard {s} {name}: a row "
+                                           "with no tile edge is not zero")
+            log(f"[shard-flash] {'K4' if kind == 'dq' else 'K5'}{label} shard {s}: max err/tol "
+                f"{max(ratios):.3f} (tol {SUM_ATOL} + {sum_rtol:.4g}*sum|terms|); {int(idle.sum())} "
+                "rows with no tile edge zero; a second launch the same bits")
+            del got, again, want, mags
+    return stats_full, errs
 
 
 def check_transformer_conv(hg, sample_graph, n, gen, dev):
@@ -1619,6 +1741,7 @@ def transformer_bf16_hybrid_phase(args, dev, card, data, small):
         reps=3, runs=3)
     encode_ms = cuda_ms(lambda: model.encode(hg), reps=3, runs=3)
     f32 = data.get("transformer_f32", {})
+    data["transformer_bf16"] = {"step_ms": step_ms, "epoch_s": epoch_s}
     log(f"[transformer-bf16] TRANSFORMER in bf16 over the SBM's hybrid operand (N={n}): one "
         f"epoch of {steps} steps, mean loss {loss:.6g}, {epoch_s:.3f} s (sampling included), "
         f"launches {epoch}; train step {step_ms:.3f} ms; encode {encode_ms:.3f} ms; "
@@ -2447,7 +2570,139 @@ def shard_tiles_phase(data, gen, card):
         f"operand's K2 {single_k2:.4f} ms and residual K1 {single_k1:.4f} ms ({hg.res_edges} "
         f"edges); card {card}")
     return {"build_s": build_s, "k2_ms": k2_ms, "k1_ms": k1_ms, "single_k2_ms": single_k2,
-            "single_k1_ms": single_k1}
+            "single_k1_ms": single_k1, "shards": shards}
+
+
+def shard_flash_phase(data, shards, gen, card):
+    """Phase 31d: K3, K4 and K5 at split row counts on each shard of phase
+    31c's 4-shard tiled partition (one process, the all_gather done by
+    indexing), in f32 and bf16: q, k, v of one TRANSFORMER layer (width
+    256) and a cotangent g for every slot, each shard's launches held
+    against their plain versions (``check_flash_split``); then the layer as
+    each shard computes it (``parallel/tile_transformer.py``: K3 and K1,
+    tile and residual merged), reassembled through the slot permutation,
+    against ``hybrid_transformer_conv`` over the single operand, and the
+    shards' dq, dk, dv (K4, K5 and three K1) against the single operand's
+    ``FlashAttn`` backward; the per-shard K3/K4/K5 times beside the single
+    operand's.  Returns the times and the split-count launches."""
+    import torch
+
+    from plnlp_tpu_torch.models import Encoder
+    from plnlp_tpu_torch.nn import apply_linear
+    from plnlp_tpu_torch.ops import flash_tiles as ft
+    from plnlp_tpu_torch.ops.tile_attention import FlashAttn, hybrid_transformer_conv
+    from plnlp_tpu_torch.parallel.graph_parallel import shard_node_features
+    from plnlp_tpu_torch.parallel.tile_transformer import (
+        tile_attn_backward, tile_attn_forward, tile_attn_stats,
+    )
+
+    S, hg = len(shards), data["hg"]
+    n, dev = hg.num_nodes, hg.tile_vals.device
+    rps = shards[0].rows_per_shard
+    scale = 1.0 / math.sqrt(WIDTH)
+
+    def to_slots(v):  # (n, D) in node order -> the gathered (S * rps, D) buffer
+        return torch.cat([shard_node_features(v, sh) for sh in shards])
+
+    def to_nodes(v):  # slot rows -> node order
+        return v.index_select(0, shards[0].node_map)
+
+    def tile_set(t):
+        return t["vals"], t["row"], t["col"], t["rowptr"]
+
+    sets = [(tile_set(sh.tiles), tile_set(sh.tiles_t)) for sh in shards]
+    lp = Encoder(torch.Generator().manual_seed(3), "TRANSFORMER", WIDTH, WIDTH,
+                 1).to(dev).layers[0]
+    x = torch.randn(n, WIDTH, device=dev, generator=gen)
+    gy = torch.randn(n, WIDTH, device=dev, generator=gen)
+    out = {"split_launches": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        bf = dtype == torch.bfloat16
+        key = "bf16" if bf else "f32"
+        xd, gd = x.to(dtype), gy.to(dtype)
+        zero_counts()
+        with torch.no_grad():
+            q, k, v, skip = (apply_linear(lp[name], xd)
+                             for name in ("lin_query", "lin_key", "lin_value", "lin_skip"))
+            qs, ks, vs, gs, skips = (to_slots(a) for a in (q, k, v, gd, skip))
+            _, errs = check_flash_split(sets, qs, ks, vs, gs, rps)
+            # the layer on each shard, and its backward from every shard's stats
+            fwd = [tile_attn_forward(sh, qs[s * rps:(s + 1) * rps], ks, vs, scale)
+                   for s, sh in enumerate(shards)]
+            y_abs = torch.cat([tile_attn_forward(sh, qs[s * rps:(s + 1) * rps], ks, vs.abs(),
+                                                 scale)[0] for s, sh in enumerate(shards)])
+            st = [tile_attn_stats(gs[s * rps:(s + 1) * rps].float(), *fwd[s], dtype)
+                  for s in range(S)]
+            stats_full, g_full = torch.cat([a for a, _ in st]), torch.cat([b for _, b in st])
+            grads = [tile_attn_backward(sh, qs[s * rps:(s + 1) * rps], ks, vs, st[s][1], st[s][0],
+                                        qs, g_full, stats_full, scale)
+                     for s, sh in enumerate(shards)]
+            got = to_nodes(torch.cat([y.to(dtype) for y, _, _ in fwd]) + skips)
+            got_g = [to_nodes(torch.cat([gr[i] for gr in grads])) for i in range(3)]
+            want = hybrid_transformer_conv(lp, hg, xd)
+        qr, kr, vr = (a.clone().requires_grad_(True) for a in (q, k, v))
+        y_single = FlashAttn.apply(qr, kr, vr, hg, scale)
+        want_g = torch.autograd.grad(y_single, (qr, kr, vr), gd.float())
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        sfx = "bf16" if bf else ""
+        # the shards: K3 2 a shard in the checks, 2 in the layer (v and |v|);
+        # K4 and K5 2 and 1; K1 1 + 1 + 3; the single operand's K3 twice
+        # (the layer, and FlashAttn for the gradients) and its K4, K5 once
+        want_counts = {f"K3{sfx}": 4 * S + 2, f"K4{sfx}": 3 * S + 1, f"K5{sfx}": 3 * S + 1,
+                       f"K1{sfx}": 5 * S}
+        require(counts == _only(counts, **want_counts),
+                f"shard flash {key}: launches {counts}, want {want_counts}")
+        out["split_launches"][key] = {"fwd": 4 * S, "dq": 3 * S, "dkv": 3 * S}
+        with torch.no_grad():
+            abs_sum = (to_nodes(y_abs) + x.abs() @ lp["lin_skip"].weight.abs().t()
+                       + lp["lin_skip"].bias.abs())
+        # bf16: one bf16 ulp of each term (K1 rounds its residual weights and
+        # sum) and two of the result (y and the output each rounded once on
+        # each side), beyond the f32 sums' tolerance
+        ea, ratio, ok = sum_errors(got, want, abs_sum, 2 * BF16_RTOL if bf else 0.0,
+                                   SUM_RTOL + (BF16_RTOL if bf else 0.0))
+        rel = {name: _rel_l2(a.float(), b.float())
+               for name, a, b in zip(("dq", "dk", "dv"), got_g, want_g)}
+        grad_tol = BF16_GRAD_TOL if bf else 1e-4
+        log(f"[shard-flash] {key} layer: {S} shards' K3 + residual K1 reassembled vs "
+            f"hybrid_transformer_conv over the single operand: max_abs={ea:.3e} max err/tol="
+            f"{ratio:.3f} (tol {SUM_ATOL} + {SUM_RTOL + (BF16_RTOL if bf else 0.0):.4g}"
+            f"*sum|terms|{' + 2**-6 |want|' if bf else ''}); dq, dk, dv (K4, K5 and 3 K1 a shard) vs "
+            f"FlashAttn's backward: relative L2 " + ", ".join(f"{k_} {v_:.3e}" for k_, v_ in rel.items())
+            + f" (tol {grad_tol}); kernels max_abs {errs}; launches {counts}")
+        require(ok, f"the tiled layer over {S} shards ({key}) differs from the single operand's")
+        require(max(rel.values()) <= grad_tol, f"the tiled layer's gradients ({key}): {rel}")
+        if not bf:
+            timed = (qs, ks, vs, gs, stats_full, q, k, v, gd, to_nodes(stats_full).contiguous())
+        del q, k, v, skip, qs, ks, vs, gs, skips, fwd, y_abs, st, grads, got, got_g, want
+        del qr, kr, vr, y_single, want_g, abs_sum
+    qs, ks, vs, gs, stats_full, q, k, v, g, stats = timed
+    times = {"fwd": [], "dq": [], "dkv": []}
+    for s, (fwd_set, bwd_set) in enumerate(sets):
+        own = slice(s * rps, (s + 1) * rps)
+        times["fwd"].append(cuda_ms(lambda: ft.flash_tiles_fwd(*fwd_set, qs[own], ks, vs, scale),
+                                    reps=10, runs=3))
+        times["dq"].append(cuda_ms(lambda: ft.flash_tiles_dq(*fwd_set, qs[own], ks, vs, gs[own],
+                                                             stats_full[own], scale),
+                                   reps=10, runs=3))
+        times["dkv"].append(cuda_ms(lambda: ft.flash_tiles_dkv(*bwd_set, qs, ks[own], vs[own], gs,
+                                                               stats_full, scale),
+                                    reps=10, runs=3))
+    fwd1 = (hg.tile_vals, hg.tile_row, hg.tile_col, hg.tile_rowptr)
+    bwd1 = (hg.tile_vals_t, hg.tile_row_t, hg.tile_col_t, hg.tile_rowptr_t)
+    single = {
+        "fwd": cuda_ms(lambda: ft.flash_tiles_fwd(*fwd1, q, k, v, scale), reps=10, runs=3),
+        "dq": cuda_ms(lambda: ft.flash_tiles_dq(*fwd1, q, k, v, g, stats, scale), reps=10, runs=3),
+        "dkv": cuda_ms(lambda: ft.flash_tiles_dkv(*bwd1, q, k, v, g, stats, scale), reps=10,
+                       runs=3),
+    }
+    for kind, label in (("fwd", "K3"), ("dq", "K4"), ("dkv", "K5")):
+        log(f"[shard-flash] {label} f32 per shard ({rps} own rows, {S * rps} gathered) "
+            f"{', '.join(f'{t:.4f}' for t in times[kind])} ms (sum {sum(times[kind]):.4f}); the "
+            f"single operand's {single[kind]:.4f} ms ({n} rows); card {card}")
+    out.update(times=times, single=single)
+    return out
 
 
 def _free_port() -> int:
@@ -2743,6 +2998,121 @@ def _parallel_tiled(rank, world, dev, opts, mesh, launches_ok, zero, add, time_s
             f"{epoch_s:.3f} s ({steps} steps, {k2} 4 and {k1} 4 a step), step {step_ms:.2f} ms "
             f"(single hybrid operand, f32: {r['single_step_ms']:.2f} ms)")
         del m, opt
+    r["transformer"] = _parallel_tiled_transformer(
+        rank, world, dev, opts, data, gp, pos, launches_ok, zero, add, time_steps, epoch)
+    return r
+
+
+def _parallel_tiled_transformer(rank, world, dev, opts, data, gp, pos, launches_ok, zero, add,
+                                time_steps, epoch):
+    """Phase 32(c): TRANSFORMER over the tiled partition of phase 7's SBM
+    (``parallel/tile_transformer.py``: K3-K5 on each shard's tiles, K1 on
+    its residual): one layer (width 256) and its input and parameter
+    gradients (summed over the ranks) against ``hybrid_transformer_conv``
+    over the single operand, in f32 and bf16, K3 1 and K1 1 launches
+    forward, K4 1, K5 1 and K1 3 backward, in x's dtype only; one epoch of
+    TRANSFORMER + MLP + AUC (2 layers, Adam) in each dtype, K3, K4, K5 2
+    and K1 8 a step, with step and epoch times beside the single hybrid
+    operand's; with W = 4 also (data, node) = (2, 2)."""
+    import torch
+    import torch.distributed as dist
+
+    from plnlp_tpu_torch.models import Encoder
+    from plnlp_tpu_torch.ops.tile_attention import hybrid_transformer_conv
+    from plnlp_tpu_torch.parallel import gather_node_features, make_graph_parallel, make_mesh
+    from plnlp_tpu_torch.parallel import shard_node_features
+    from plnlp_tpu_torch.parallel.graph_parallel import partitioned_transformer_conv
+    from plnlp_tpu_torch.training import Model, ModelConfig
+
+    say = log if rank == 0 else (lambda _msg: None)
+    seed, width, batch = opts["seed"], opts["width"], opts["batch"]
+    hg, twin = data["hg"], data["sample_graph"]
+    n = hg.num_nodes
+    steps = -(-pos.shape[0] // batch)
+    mesh = gp.mesh
+    r = {"steps": steps}
+    lp = Encoder(torch.Generator().manual_seed(1), "TRANSFORMER", width, width, 1).to(dev).layers[0]
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)  # the same x and gy on every rank
+    x = torch.randn(n, width, device=dev, generator=gen)
+    gy = torch.randn(n, width, device=dev, generator=gen)
+    for dtype, sfx in ((torch.float32, ""), (torch.bfloat16, "bf16")):
+        lp.zero_grad(set_to_none=True)
+        xr = x.to(dtype).clone().requires_grad_(True)
+        want = hybrid_transformer_conv(lp, hg, xr)
+        (want.float() * gy).sum().backward()
+        want_g = _grads_of(lp, xr)
+        lp.zero_grad(set_to_none=True)
+        xl = shard_node_features(x.to(dtype), gp).requires_grad_(True)
+        zero()
+        y = partitioned_transformer_conv(gp, lp, xl)
+        launches_ok(f"tiled TransformerConv {dtype} forward", **{f"K3{sfx}": 1, f"K1{sfx}": 1})
+        (y.float() * shard_node_features(gy, gp)).sum().backward()
+        add(launches_ok(f"tiled TransformerConv {dtype} forward and backward",
+                        **{f"K3{sfx}": 1, f"K4{sfx}": 1, f"K5{sfx}": 1, f"K1{sfx}": 4}))
+        for lin in lp.values():  # this rank's partial sums, summed over the ranks
+            for p in lin.parameters():
+                if dist.is_initialized() and dist.get_world_size() > 1:
+                    dist.all_reduce(p.grad)
+        got = gather_node_features(y.detach(), gp)
+        got_g = [gather_node_features(xl.grad.float(), gp)] + _grads_of(lp, xl)[1:]
+        with torch.no_grad():
+            skip = lp["lin_skip"](x.to(dtype).float())
+        ea, ratio = conv_value_errors(got, want.detach(), skip, dtype)
+        grad_tol = 1e-4 if dtype == torch.float32 else BF16_GRAD_TOL
+        rel = {name: _rel_l2(a, b) for name, a, b in zip(["x", *lp.keys()], got_g, want_g)}
+        key = str(dtype)[6:]
+        r[f"layer_{key}"] = {"max_abs": ea, "err_over_tol": ratio, "grad_rel_l2": rel}
+        say(f"[parallel-tiled-transformer] tiled partitioned TransformerConv in {key} (N={n}, "
+            f"D={width}) vs hybrid_transformer_conv over the single operand: values max_abs "
+            f"{ea:.3e}, max err/tol {ratio:.3f}; gradient relative L2 "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+            + f" (tol {grad_tol}); K3 1 and K1 1 forward, K4 1, K5 1 and K1 3 backward")
+        require(ratio <= 1.0, f"tiled partitioned TransformerConv {key}: values err/tol {ratio:.3f}")
+        require(max(rel.values()) <= grad_tol, f"tiled partitioned TransformerConv {key}: {rel}")
+        del xr, want, want_g, xl, y, got, got_g, skip
+    del x, gy
+    cfg = ModelConfig(encoder="TRANSFORMER", predictor="MLP", loss_func="AUC",
+                      neg_sampler="global", gnn_num_layers=2, emb_hidden_channels=width,
+                      gnn_hidden_channels=width, mlp_hidden_channels=width, batch_size=batch,
+                      num_neg=1)
+    for dtype, sfx in (("float32", ""), ("bfloat16", "bf16")):
+        dcfg = dataclasses.replace(cfg, compute_dtype=dtype)
+        single = Model(dcfg, n, seed=seed, device=dev)
+        single_ms = time_steps(single, single.make_optimizer(), hg, None, None, reps=3, pos=pos,
+                               twin=twin)
+        del single
+        m = Model(dcfg, n, seed=seed, device=dev).place_rows(gp)
+        opt = m.make_optimizer()
+        loss, epoch_s = epoch(m, opt, gp, None, mesh, pos=pos, twin=twin)
+        add(launches_ok(f"tiled TRANSFORMER {dtype} epoch",
+                        **{f"K3{sfx}": 2 * steps, f"K4{sfx}": 2 * steps, f"K5{sfx}": 2 * steps,
+                           f"K1{sfx}": 8 * steps}))
+        require(math.isfinite(loss), f"tiled TRANSFORMER {dtype} epoch loss {loss}")
+        step_ms = time_steps(m, opt, gp, None, mesh, reps=3, pos=pos, twin=twin)
+        r[dtype] = {"loss": loss, "epoch_s": epoch_s, "step_ms": step_ms,
+                    "single_step_ms": single_ms}
+        say(f"[parallel-tiled-transformer] TRANSFORMER {dtype} over the tiled partition: epoch "
+            f"loss {loss:.4f} in {epoch_s:.3f} s ({steps} steps, K3, K4, K5 2 and K1 8 a step), "
+            f"step {step_ms:.2f} ms (the single hybrid operand's here {single_ms:.2f} ms); card "
+            f"{opts.get('card')}")
+        del m, opt
+    if world == 4:
+        # (data, node) = (2, 2): pair batches over 'data', the tiles over 'node'
+        mesh22 = make_mesh(2, 2, device=dev)
+        relabel = np.empty(n, np.int64)
+        relabel[data["est"]["order"]] = np.arange(n)
+        src, dst = (relabel[a] for a in data["edges"])
+        gp22 = make_graph_parallel(src, dst, None, num_nodes=n, mesh=mesh22, block=BLOCK,
+                                   tile=TILE, min_fill=MIN_FILL, reorder="labelprop",
+                                   order=np.arange(n, dtype=np.int64))
+        m22 = Model(cfg, n, seed=seed, device=dev).place_rows(gp22)
+        loss, r["mesh22_epoch_s"] = epoch(m22, m22.make_optimizer(), gp22, None, mesh22, pos=pos,
+                                          twin=twin)
+        require(math.isfinite(loss), f"(2, 2) tiled TRANSFORMER epoch loss {loss}")
+        r["mesh22_loss"] = loss
+        say(f"[parallel-tiled-transformer] mesh (data=2, node=2): epoch loss {loss:.4f} in "
+            f"{r['mesh22_epoch_s']:.3f} s; card {opts.get('card')}")
+        del m22, gp22
     return r
 
 
@@ -2857,8 +3227,10 @@ def spawn_ranks(world: int, opts: dict, tmp: str) -> dict:
         return json.load(f)
 
 
-def parallel_path(args, card, tmp):
-    """Phase 32: the partitioned path at collab's width on W ranks."""
+def parallel_path(args, card, tmp, tf_single):
+    """Phase 32: the partitioned path at collab's width on W ranks;
+    ``tf_single`` holds phase 16's and 28's single-operand TRANSFORMER step
+    and epoch times."""
     import torch
 
     world = min(torch.cuda.device_count(), MAX_RANKS)
@@ -2870,7 +3242,7 @@ def parallel_path(args, card, tmp):
     res = spawn_ranks(world, {
         "backend": "nccl", "seed": args.seed, "n_nodes": N_NODES, "n_edges": N_EDGES,
         "width": WIDTH, "batch": BATCH, "pairs": CLI_PAIRS,
-        "sbm": (N_NODES, N_EDGES, N_COMMUNITIES),
+        "sbm": (N_NODES, N_EDGES, N_COMMUNITIES), "card": card,
     }, tmp)
     log(f"[parallel] W={world}: single operand step {res['single_step_ms']:.2f} ms, epoch "
         f"{res['single_epoch_s']:.3f} s; partitioned all_gather step "
@@ -2888,8 +3260,16 @@ def parallel_path(args, card, tmp):
         f"{tl['build_s']:.2f} s; (b) TRANSFORMER over the blocked partition: step f32 "
         f"{tf['float32']['step_ms']:.2f} ms, bf16 {tf['bfloat16']['step_ms']:.2f} ms (single "
         f"operand f32 {tf['single_step_ms']:.2f} ms), epoch f32 {tf['float32']['epoch_s']:.3f} s, "
-        f"bf16 {tf['bfloat16']['epoch_s']:.3f} s (single {tf['single_epoch_s']:.3f} s); rank 0's "
-        f"launches {res['launches']}; phase {time.perf_counter() - t0:.1f} s; card {card}")
+        f"bf16 {tf['bfloat16']['epoch_s']:.3f} s (single {tf['single_epoch_s']:.3f} s); card {card}")
+    tt = tl["transformer"]
+    log(f"[parallel] W={world}: (c) TRANSFORMER over the tiled partition: step f32 "
+        f"{tt['float32']['step_ms']:.2f} ms, bf16 {tt['bfloat16']['step_ms']:.2f} ms, epoch f32 "
+        f"{tt['float32']['epoch_s']:.3f} s, bf16 {tt['bfloat16']['epoch_s']:.3f} s; the single "
+        f"hybrid operand's step on the ranks' card f32 {tt['float32']['single_step_ms']:.2f} ms, "
+        f"bf16 {tt['bfloat16']['single_step_ms']:.2f} ms; phase 16: step "
+        f"{tf_single['f32']['step_ms']:.3f} ms, epoch {tf_single['f32']['epoch_s']:.3f} s; phase 28: "
+        f"step {tf_single['bf16']['step_ms']:.3f} ms, epoch {tf_single['bf16']['epoch_s']:.3f} s; "
+        f"rank 0's launches {res['launches']}; phase {time.perf_counter() - t0:.1f} s; card {card}")
     return res
 
 
@@ -2905,11 +3285,12 @@ def sbm_hybrid_flags(seed: int) -> list:
 
 def torchrun_commands(seed: int) -> dict:
     """Phase 33's commands: the collab command, it with TRANSFORMER, and the
-    SBM command over the hybrid operand."""
+    SBM command over the hybrid operand with SAGE and with TRANSFORMER."""
     return {
         "collab": collab_flags(seed),
         "collab TRANSFORMER": [*collab_flags(seed), "--encoder", "TRANSFORMER"],
         "SBM hybrid": sbm_hybrid_flags(seed),
+        "SBM TRANSFORMER hybrid": [*sbm_hybrid_flags(seed), "--encoder", "TRANSFORMER"],
     }
 
 
@@ -2943,9 +3324,9 @@ def cli_torchrun_phase(args, world: int, tmp: str, label: str = "collab"):
     if world > 1:
         require(any(line.startswith(f"partition: S={world}") for line in lines),
                 f"torchrun {label}: no partition line")
-        if label == "SBM hybrid":
+        if label.startswith("SBM"):
             require(any("tiles/shard=" in line for line in lines),
-                    "torchrun SBM hybrid: the partition is not tiled")
+                    f"torchrun {label}: the partition is not tiled")
     log(f"[torchrun] {label} --num_shards {world}: one epoch, loss {rows[0]['loss']:.4f}, epoch "
         f"{rows[0]['epoch_seconds']:.3f} s, {seconds:.1f} s in all")
     return rows[0]
@@ -3190,16 +3571,24 @@ def main() -> int:
         flash_bf16, tf_launches = transformer_bf16_path(args, dev, card, graph, graph_t, ds,
                                                         split, data, small, tmp)
         native_phase(args, data)
-        shard_tiles_phase(data, gen, card)
+        shard_flash = shard_flash_phase(data, shard_tiles_phase(data, gen, card)["shards"], gen,
+                                        card)
+        tf_single = {"f32": data["transformer_f32"], "bf16": data["transformer_bf16"]}
         del data, small
         torch.cuda.empty_cache()
         shard_k1_phase(graph, graph_t, src, dst, gen, card)
         torch.cuda.empty_cache()
-        par = parallel_path(args, card, tmp)
+        par = parallel_path(args, card, tmp, tf_single)
         for label in torchrun_commands(args.seed):
             cli_torchrun_phase(args, par["world"], tmp, label)
     for entry, kernel in zip(train_kernels, ("K2", "K3", "K4", "K5")):
         entry["launches"] += cli_launches[kernel] + par["launches"][kernel]
+    # the launches at split row counts (own != gathered rows) of phase 31d
+    for entry, kind in zip(train_kernels[1:], ("fwd", "dq", "dkv")):
+        entry["split_launches"] = shard_flash["split_launches"]["f32"][kind]
+    for entry, kind, kernel in zip(flash_bf16, ("fwd", "dq", "dkv"), ("K3", "K4", "K5")):
+        entry["split_launches"] = shard_flash["split_launches"]["bf16"][kind]
+        entry["launches"] += par["launches"][f"{kernel}bf16"]
     bf16_kernels[0]["launches"] += tf_launches["K1bf16"] + par["launches"]["K1bf16"]
     bf16_kernels[1]["launches"] += par["launches"]["K2bf16"]
 

@@ -2,7 +2,8 @@
 """Time variants of the flash kernels K3 (forward), K4 (dq) and K5 (dk/dv)
 on one NVIDIA GPU, at the collab SBM shape ``chip_smoke.py`` trains on.
 
-    python3 chip_sweep_flash.py [--seed 0]
+    python3 chip_sweep_flash.py [--seed 0] [--dtype bfloat16] [--variants a,b]
+                                [--baseline OTHER/flash_tiles.cu]
 
 Each variant is ``plnlp_tpu_torch/csrc/flash_tiles.cu`` with some of its
 compile-time knobs replaced (rows a warp owns, list entries in flight,
@@ -14,8 +15,13 @@ rescaling whenever the running max grows) is held to the plain version
 with ``chip_smoke.py``'s checks of K3.  Prints the compiler's register and
 spill report of each variant, then each variant's K3, K4 and K5 times
 (CUDA events; median of 5 runs of 10 calls), the source's own first and
-again last, and the card's name and power limit.  Imports nothing of JAX
-or of the JAX package.
+again last, and the card's name and power limit.  ``--dtype bfloat16``
+times the bf16 entry points on bf16 features instead; ``--variants`` runs
+only the named ones.  ``--baseline`` adds another ``flash_tiles.cu`` (an
+earlier commit's, whose entries may lack the gathered-row count) as the
+variant ``baseline``, run first and again last around the source: it must
+give the source's bits, so the pair is an A/B of two commits in one run.
+Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -31,10 +37,10 @@ import sys
 # (kUnrollFwd v rows in flight), num and den are rescaled whenever the
 # running max grows (the source takes the chunk's max first and rescales
 # once)
-ONE_SWEEP_FWD = """template <bool VEC>
-__device__ __forceinline__ void drain_fwd(const int* lst, int n, FwdRow& w,
-                                          const float* __restrict__ k,
-                                          const float* __restrict__ v, int rows, int c0,
+ONE_SWEEP_FWD = """template <bool VEC, typename F>
+__device__ __forceinline__ void drain_fwd(const int* lst, int n, FwdRow<F>& w,
+                                          const F* __restrict__ k,
+                                          const F* __restrict__ v, int rows_g, int c0,
                                           int lane, int d, float scale) {
   __syncwarp();
   for (int b = 0; b < n; b += 32) {
@@ -42,7 +48,7 @@ __device__ __forceinline__ void drain_fwd(const int* lst, int n, FwdRow& w,
     float s = -INFINITY;
     if (lane < n_b) {
       const int row = lst[b + lane];
-      s = (row < rows ? dot_seq<VEC>(w.q_row, k + (int64_t)row * d, d) : 0.f) * scale;
+      s = (row < rows_g ? dot_seq<VEC>(w.q_row, k + (int64_t)row * d, d) : 0.f) * scale;
     }
     for (int u = 0; u < n_b; u += kUnrollFwd) {
       float x[kUnrollFwd][8], su[kUnrollFwd];
@@ -53,7 +59,7 @@ __device__ __forceinline__ void drain_fwd(const int* lst, int n, FwdRow& w,
         for (int c = 0; c < 8; ++c) x[uu][c] = 0.f;
         if (u + uu >= n_b) continue;  // warp-uniform
         const int row = lst[b + u + uu];
-        if (row < rows) load_cols<VEC>(v + (int64_t)row * d, c0, lane, d, x[uu]);
+        if (row < rows_g) load_cols<VEC>(v + (int64_t)row * d, c0, lane, d, x[uu]);
       }
 #pragma unroll
       for (int uu = 0; uu < kUnrollFwd; ++uu) {
@@ -67,8 +73,9 @@ __device__ __forceinline__ void drain_fwd(const int* lst, int n, FwdRow& w,
         }
         const float p = expf(su[uu] - w.m);
         w.den += p;
+        const float pv = round_to<F>(p);
 #pragma unroll
-        for (int c = 0; c < 8; ++c) w.num[c] = fmaf(p, x[uu][c], w.num[c]);
+        for (int c = 0; c < 8; ++c) w.num[c] = fmaf(pv, x[uu][c], w.num[c]);
       }
     }
   }
@@ -135,16 +142,19 @@ def variant_source(src: str, knobs, functions) -> str:
     return src
 
 
-def build_variants(dev_dir):
-    """Compile every variant, one nvcc each, all started together; returns
-    {name: (library, compiler report)}."""
+def build_variants(dev_dir, variants, baseline=None):
+    """Compile every variant (and ``baseline``'s source, if given), one nvcc
+    each, all started together; returns {name: (library, compiler
+    report)}."""
     from plnlp_tpu_torch import _build
 
     src = (_build.CSRC / "flash_tiles.cu").read_text()
     dev_dir.mkdir(parents=True, exist_ok=True)
+    texts = {name: variant_source(src, knobs, functions) for name, knobs, functions, _ in variants}
+    if baseline is not None:
+        texts["baseline"] = baseline
     procs = {}
-    for name, knobs, functions, _ in VARIANTS:
-        text = variant_source(src, knobs, functions)
+    for name, text in texts.items():
         tag = re.sub(r"\W", "_", name)
         cu, so = dev_dir / f"flash_tiles_{tag}.cu", dev_dir / f"libflash_tiles_{tag}.so"
         cu.write_text(text)
@@ -166,6 +176,9 @@ def build_variants(dev_dir):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
+    ap.add_argument("--variants", default="", help="comma-separated names (default: all)")
+    ap.add_argument("--baseline", default="", help="another flash_tiles.cu to A/B against")
     args = ap.parse_args()
 
     import torch
@@ -182,7 +195,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    libs = build_variants(_build.BUILD_DIR.parent / "sweep_flash")
+    variants = [v for v in VARIANTS if v[0] == "source"
+                or not args.variants or v[0] in args.variants.split(",")]
+    baseline = open(args.baseline).read() if args.baseline else None
+    libs = build_variants(_build.BUILD_DIR.parent / "sweep_flash", variants, baseline)
     for name, (_, report) in libs.items():
         print(f"[build] {name}: {path_report(report)}", flush=True)
 
@@ -193,61 +209,74 @@ def main() -> int:
     n_r = hg.tile_rowptr.shape[0] - 1
     n_pad = n_r * t
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    q, k, v, g = (torch.randn(n_pad, chip_smoke.WIDTH, device=dev, generator=gen)
-                  for _ in range(4))
+    bf16 = args.dtype == "bfloat16"
+    q, k, v, g = (torch.randn(n_pad, chip_smoke.WIDTH, device=dev, generator=gen
+                              ).to(getattr(torch, args.dtype)) for _ in range(4))
     scale = 1.0 / math.sqrt(chip_smoke.WIDTH)
     fwd_set = (hg.tile_vals, hg.tile_row, hg.tile_col, hg.tile_rowptr)
     num_r, ml_r = ft.flash_tiles_fwd_reference(*fwd_set[:3], q, k, v, n_r, scale)
     num_a, _ = ft.flash_tiles_fwd_reference(*fwd_set[:3], q, k, v.abs(), n_r, scale)
     m = torch.where(torch.isfinite(ml_r[:, 0]), ml_r[:, 0], 0.0)
     den = ml_r[:, 1].clamp(min=torch.finfo(torch.float32).tiny)
-    stats = torch.stack([m, den, (g * num_r / den[:, None]).sum(-1)], 1).contiguous()
+    stats = torch.stack([m, den, (g.float() * num_r / den[:, None]).sum(-1)], 1).contiguous()
     sets = {"fwd": (hg.tile_vals, hg.tile_col, hg.tile_rowptr),
             "dq": (hg.tile_vals, hg.tile_col, hg.tile_rowptr),
             "dkv": (hg.tile_vals_t, hg.tile_col_t, hg.tile_rowptr_t)}
 
-    def caller(lib, kind):
-        fn = getattr(lib, f"plnlp_flash_tiles_{kind}")
-        fn.argtypes = ft._ARGTYPES[kind]
+    def caller(name, kind):
+        lib = libs[name][0]
+        fn = getattr(lib, f"plnlp_flash_tiles_{kind}" + ("_bf16" if bf16 else ""))
+        # a baseline from before the gathered-row count (rows_g, the fourth
+        # argument from the end) takes one count
+        split = name != "baseline" or "int rows_g" in baseline
+        types = ft._ARGTYPES[kind]
+        fn.argtypes = types if split else types[:-4] + types[-3:]
         fn.restype = ctypes.c_int
         vals, tc, tp = sets[kind]
+        f32 = dict(dtype=torch.float32, device=dev)
         if kind == "fwd":
-            outs = [torch.empty_like(q), q.new_empty((n_pad, 2))]
+            outs = [torch.empty((n_pad, chip_smoke.WIDTH), **f32), torch.empty((n_pad, 2), **f32)]
             ptrs = [a.data_ptr() for a in (tc, tp, q, k, v, *outs)]
         else:
-            outs = [torch.empty_like(q) for _ in range(1 if kind == "dq" else 2)]
+            outs = [torch.empty((n_pad, chip_smoke.WIDTH), **f32)
+                    for _ in range(1 if kind == "dq" else 2)]
             ptrs = [a.data_ptr() for a in (tc, tp, q, k, v, g, stats, *outs)]
         stream = torch.cuda.current_stream(dev).cuda_stream
+        rows = (n_pad, n_pad) if split else (n_pad,)
 
         def call():
-            err = fn(vals.data_ptr(), int(vals.dtype == torch.int8), *ptrs, n_r, t, n_pad,
+            err = fn(vals.data_ptr(), int(vals.dtype == torch.int8), *ptrs, n_r, t, *rows,
                      chip_smoke.WIDTH, scale, stream)
             _build.check(lib, err, f"flash_tiles_{kind} sweep launch")
             return outs
         return call
 
-    want = {kind: [o.clone() for o in caller(libs["source"][0], kind)()] for kind in KINDS}
-    exact = {name: ex for name, _, _, ex in VARIANTS}
-    order = [name for name, *_ in VARIANTS] + ["source"]
+    want = {kind: [o.clone() for o in caller("source", kind)()] for kind in KINDS}
+    exact = {name: ex for name, _, _, ex in variants}
+    exact["baseline"] = True
+    order = [name for name, *_ in variants] + ["source"]
+    if baseline is not None:
+        order = ["baseline", *order, "baseline"]
     for name in order:
-        lib = libs[name][0]
         times, notes = [], []
         for kind in KINDS:
-            call = caller(lib, kind)
+            call = caller(name, kind)
             got = call()
             torch.cuda.synchronize()
             if exact[name] or kind != "fwd":
                 chip_smoke.require(all(torch.equal(a, b) for a, b in zip(got, want[kind])),
                                    f"variant {name}: flash_tiles_{kind} differs from the source")
             else:
-                ratio, empty_ok, _ = chip_smoke.fwd_errors(*got, num_r, ml_r, num_a)
+                ratio, empty_ok, _ = chip_smoke.fwd_errors(
+                    *got, num_r, ml_r, num_a,
+                    chip_smoke.SUM_RTOL + (chip_smoke.BF16_RTOL if bf16 else 0.0))
                 chip_smoke.require(ratio <= 1.0 and empty_ok,
                                    f"variant {name}: flash_tiles_fwd disagrees with its plain "
                                    f"version (max err/tol {ratio:.3f})")
                 notes.append(f"K3 max err/tol {ratio:.3f} against the plain version")
             times.append(chip_smoke.cuda_ms(call, reps=10, runs=5))
         same = "; ".join(notes) or "same bits as the source"
-        print(f"[sweep] {name}: " + ", ".join(f"{LABELS[kd]} {ms:.4f} ms" for kd, ms in
+        print(f"[sweep] {name} ({args.dtype}): " + ", ".join(f"{LABELS[kd]} {ms:.4f} ms" for kd, ms in
                                               zip(KINDS, times))
               + f" ({same}); card {card}", flush=True)
     print(card, flush=True)

@@ -397,20 +397,6 @@ def _device(args, device):
     return default_device(f"cuda:{args.device}" if device is None else device)
 
 
-def _check_ported(args, backend: Optional[str] = None) -> None:
-    """Flag values that select code the port does not have yet raise, so
-    nothing else runs in their place: TRANSFORMER over the tiled partition
-    (``--num_shards`` > 1 with ``backend``, what ``--adj_backend`` came out
-    as, hybrid)."""
-    if (args.num_shards > 1 and args.encoder.upper() == "TRANSFORMER"
-            and (backend or args.adj_backend) == "hybrid"):
-        raise NotImplementedError(
-            f"--num_shards {args.num_shards} --encoder TRANSFORMER over the hybrid operand: "
-            "TRANSFORMER over the tiled partition (K3-K5 on each shard, "
-            "parallel/tile_transformer.py) is not ported yet (ROADMAP queue 1 item 1)"
-        )
-
-
 def _make_mesh(args, dev):
     """The (mesh_data, num_shards) mesh, or None on one device; more ranks
     need the process group torchrun sets up."""
@@ -448,7 +434,6 @@ def prepare_experiment(args, log=print, serving=False, device=None):
     use_dense = args.adj_backend == "dense" or (
         args.adj_backend == "auto" and num_nodes <= args.dense_threshold
     )
-    _check_ported(args)
     mesh = _make_mesh(args, dev)
     partitioned = args.num_shards > 1
     if args.block_rows == 0 and (partitioned or not use_dense) and not serving:
@@ -497,7 +482,6 @@ def prepare_experiment(args, log=print, serving=False, device=None):
                 f"({est['num_tiles']} tiles at T={args.tile_size}"
                 f"/min_fill={args.tile_min_fill}, threshold {thr:.0%}) -> {backend}"
             )
-            _check_ported(args, backend)
     if serving:
         # The model's rows are in the trained run's id space.  The JAX CLI
         # re-derives the order instead, which differs from the trained

@@ -18,11 +18,18 @@
 // Layout.  Tiles are sorted by row tile and the tiles of row tile rt lie at
 // [tile_rowptr[rt], tile_rowptr[rt+1]); vals is (nt, T, T) int8, f32 or
 // bf16, 16-byte aligned, and only its zero pattern is read.  q, k, v, g are
-// (rows, d) f32 (plnlp_flash_tiles_{fwd,dq,dkv}) or bf16 (the _bf16 entry
-// points), stats is (rows, 3) f32, all 16-byte aligned; rows past `rows`
-// read as zero features and as stats (0, 1, 0).  The outputs are f32 in
-// both.  Any d and any T that is a multiple of 16 are taken (the TPU path
-// pads d to 128 lanes).
+// f32 (plnlp_flash_tiles_{fwd,dq,dkv}) or bf16 (the _bf16 entry points) of
+// d columns, stats is f32 (M, den, delta) rows, all 16-byte aligned.  Two row
+// counts: `rows` for the arrays of the rows a launch owns (its output rows)
+// and `rows_g` for the arrays its tile columns gather from:
+//   K3  own q, num, ml;          gathered k, v
+//   K4  own q, g, stats, dq;     gathered k, v
+//   K5  own k, v, dk, dv;        gathered q, g, stats
+// One operand passes rows_g = rows; a shard of a tiled partition passes its
+// rows_per_shard own rows and the S * rows_per_shard rows of the gathered
+// buffer.  Rows past either count read as zero features and as stats
+// (0, 1, 0).  The outputs are f32 in both.  Any d and any T that is a
+// multiple of 16 are taken (the TPU path pads d to 128 lanes).
 //
 // bf16 features (the TPU kernels with bf16 q/k/v/g): the scores and g . v
 // are f32 sums of bf16 products (exact in f32), the softmax terms are f32,
@@ -86,7 +93,7 @@
 // den come out with the same bits in every slice (slice 0 writes them).
 //
 // Traps:
-// - Sources at or past `rows` stay in K3's list.  K4 and K5 leave them out,
+// - Sources at or past `rows_g` stay in K3's list.  K4 and K5 leave them out,
 //   since each of their terms there is exactly 0.  In K3 such an edge is not
 //   0: its features read as zero, so s = 0 and its v row is 0, but exp(0 - m)
 //   still counts in den and 0 counts toward m (the plain version's
@@ -293,13 +300,13 @@ __device__ __forceinline__ float dot8(const float (&a)[8], const float (&b)[8], 
 // Walks row r of the tiles [t_begin, t_end), kChunk columns a pass and
 // kGroup passes in flight, and appends the gathered row (tile_col * T +
 // column) of each nonzero to the warp's list `lst` in column order.  Rows at
-// or past `rows` stay in the list with KEEP_PAST (K3) and are left out
-// otherwise (K4, K5).  Calls drain(n) with the list's n entries before a
+// or past the gathered count `rows_g` stay in the list with KEEP_PAST (K3)
+// and are left out otherwise (K4, K5).  Calls drain(n) with the list's n entries before a
 // pass could overflow it, and once at the end.
 template <bool KEEP_PAST, typename V, typename Drain>
 __device__ __forceinline__ void scan_row(const V* __restrict__ vals,
                                          const int* __restrict__ tile_col, int t_begin,
-                                         int t_end, int r, int tile, int rows, int* lst,
+                                         int t_end, int r, int tile, int rows_g, int* lst,
                                          Drain&& drain) {
   const int lane = threadIdx.x & 31;
   const int n_chunks = (tile + kChunk - 1) / kChunk;
@@ -329,7 +336,7 @@ __device__ __forceinline__ void scan_row(const V* __restrict__ vals,
       unsigned nz = 0;
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        if (v[g][j] != 0.f && (KEEP_PAST || xcol[g] + j < rows)) nz |= 1u << j;
+        if (v[g][j] != 0.f && (KEEP_PAST || xcol[g] + j < rows_g)) nz |= 1u << j;
       const int cnt = __popc(nz);
       int incl = cnt;  // inclusive prefix sum over lanes
 #pragma unroll
@@ -412,16 +419,16 @@ struct FwdRow {
 template <bool VEC, typename F>
 __device__ __forceinline__ void drain_fwd(const int* lst, int n, FwdRow<F>& w,
                                           const F* __restrict__ k,
-                                          const F* __restrict__ v, int rows, int c0,
+                                          const F* __restrict__ v, int rows_g, int c0,
                                           int lane, int d, float scale) {
   __syncwarp();
   for (int b = 0; b < n; b += 32) {
     const int n_b = n - b < 32 ? n - b : 32;
-    // lane u scores entry b + u; a row past `rows` scores 0
+    // lane u scores entry b + u; a row past `rows_g` scores 0
     float s = -INFINITY;
     if (lane < n_b) {
       const int row = lst[b + lane];
-      s = (row < rows ? dot_seq<VEC>(w.q_row, k + (int64_t)row * d, d) : 0.f) * scale;
+      s = (row < rows_g ? dot_seq<VEC>(w.q_row, k + (int64_t)row * d, d) : 0.f) * scale;
     }
     // one rescale a chunk; the factor is 0 while m_run is -inf
     const float m_new = fmaxf(w.m, warp_max(s));
@@ -442,7 +449,7 @@ __device__ __forceinline__ void drain_fwd(const int* lst, int n, FwdRow<F>& w,
         for (int c = 0; c < 8; ++c) x[uu][c] = 0.f;
         if (u + uu >= n_b) continue;  // warp-uniform
         const int row = lst[b + u + uu];
-        if (row < rows) load_cols<VEC>(v + (int64_t)row * d, c0, lane, d, x[uu]);
+        if (row < rows_g) load_cols<VEC>(v + (int64_t)row * d, c0, lane, d, x[uu]);
       }
 #pragma unroll
       for (int uu = 0; uu < kUnrollFwd; ++uu) {
@@ -462,8 +469,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksFwd)
 flash_fwd_kernel(const V* __restrict__ vals, const int* __restrict__ tile_col,
                  const int* __restrict__ tile_rowptr, const F* __restrict__ q,
                  const F* __restrict__ k, const F* __restrict__ v,
-                 float* __restrict__ num, float* __restrict__ ml, int tile, int rows, int d,
-                 float scale) {
+                 float* __restrict__ num, float* __restrict__ ml, int tile, int rows,
+                 int rows_g, int d, float scale) {
   __shared__ int lst_all[kWarps][kCap];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -485,8 +492,8 @@ flash_fwd_kernel(const V* __restrict__ vals, const int* __restrict__ tile_col,
     w.den = 0.f;
 #pragma unroll
     for (int c = 0; c < 8; ++c) w.num[c] = 0.f;
-    scan_row<true>(vals, tile_col, t_begin, t_end, r, tile, rows, lst, [&](int n) {
-      drain_fwd<VEC>(lst, n, w, k, v, rows, c0, lane, d, scale);
+    scan_row<true>(vals, tile_col, t_begin, t_end, r, tile, rows_g, lst, [&](int n) {
+      drain_fwd<VEC>(lst, n, w, k, v, rows_g, c0, lane, d, scale);
     });
     store_cols<VEC, F>(num + grow * d, c0, lane, d, w.num);
     if (blockIdx.z == 0 && lane == 0) {
@@ -611,7 +618,7 @@ flash_bwd_kernel(const V* __restrict__ vals, const int* __restrict__ tile_col,
                  const F* __restrict__ own_b, const F* __restrict__ gat_a,
                  const F* __restrict__ gat_b, const float* __restrict__ stats,
                  float* __restrict__ out_a, float* __restrict__ out_b, int tile, int rows,
-                 int d, float scale) {
+                 int rows_g, int d, float scale) {
   __shared__ int lst_all[kWarps][kCap];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -643,7 +650,7 @@ flash_bwd_kernel(const V* __restrict__ vals, const int* __restrict__ tile_col,
     w.m = DKV ? 0.f : __ldg(stats + grow * 3);
     w.den = DKV ? 1.f : __ldg(stats + grow * 3 + 1);
     w.delta = DKV ? 0.f : __ldg(stats + grow * 3 + 2);
-    scan_row<false>(vals, tile_col, t_begin, t_end, r, tile, rows, lst, [&](int n) {
+    scan_row<false>(vals, tile_col, t_begin, t_end, r, tile, rows_g, lst, [&](int n) {
       drain_bwd<F, VEC, WIDE, DKV>(lst, n, w, gat_a, gat_b, stats, c0, lane, d, scale);
     });
     store_cols<VEC, F>(out_a + grow * d, c0, lane, d, w.acc_a);
@@ -684,10 +691,11 @@ template <typename V, typename F, bool VEC, bool WIDE>
 struct LaunchFwd {
   static void run(const void* vals, const int* tc, const int* tp, const void* q,
                   const void* k, const void* v, float* num, float* ml, int nr, int tile,
-                  int rows, int d, float scale, cudaStream_t stream) {
+                  int rows, int rows_g, int d, float scale, cudaStream_t stream) {
     flash_fwd_kernel<V, F, VEC><<<grid_of(kFwd, nr, tile, d), kThreads, 0, stream>>>(
         static_cast<const V*>(vals), tc, tp, static_cast<const F*>(q),
-        static_cast<const F*>(k), static_cast<const F*>(v), num, ml, tile, rows, d, scale);
+        static_cast<const F*>(k), static_cast<const F*>(v), num, ml, tile, rows, rows_g, d,
+        scale);
   }
 };
 
@@ -698,12 +706,13 @@ struct LaunchBwd {
     static void run(const void* vals, const int* tc, const int* tp, const void* own_a,
                     const void* own_b, const void* gat_a, const void* gat_b,
                     const float* stats, float* out_a, float* out_b, int nr, int tile,
-                    int rows, int d, float scale, cudaStream_t stream) {
+                    int rows, int rows_g, int d, float scale, cudaStream_t stream) {
       flash_bwd_kernel<V, F, VEC, WIDE, DKV>
           <<<grid_of(DKV ? kDkv : kDq, nr, tile, d), kThreads, 0, stream>>>(
               static_cast<const V*>(vals), tc, tp, static_cast<const F*>(own_a),
               static_cast<const F*>(own_b), static_cast<const F*>(gat_a),
-              static_cast<const F*>(gat_b), stats, out_a, out_b, tile, rows, d, scale);
+              static_cast<const F*>(gat_b), stats, out_a, out_b, tile, rows, rows_g, d,
+              scale);
     }
   };
 };
@@ -711,20 +720,21 @@ struct LaunchBwd {
 template <typename F>
 int launch_fwd(const void* vals, int vals_kind, const int* tile_col, const int* tile_rowptr,
                const void* q, const void* k, const void* v, float* num, float* ml,
-               int n_rowtiles, int tile, int rows, int d, float scale, cudaStream_t stream) {
+               int n_rowtiles, int tile, int rows, int rows_g, int d, float scale,
+               cudaStream_t stream) {
   dispatch<LaunchFwd, F>(vals_kind, d, vals, tile_col, tile_rowptr, q, k, v, num, ml,
-                         n_rowtiles, tile, rows, d, scale, stream);
+                         n_rowtiles, tile, rows, rows_g, d, scale, stream);
   return (int)cudaGetLastError();
 }
 
 template <typename F>
 int launch_dq(const void* vals, int vals_kind, const int* tile_col, const int* tile_rowptr,
               const void* q, const void* k, const void* v, const void* g, const float* stats,
-              float* out, int n_rowtiles, int tile, int rows, int d, float scale,
+              float* out, int n_rowtiles, int tile, int rows, int rows_g, int d, float scale,
               cudaStream_t stream) {
   dispatch<LaunchBwd<false>::Of, F>(vals_kind, d, vals, tile_col, tile_rowptr, q, g, k, v,
                                     stats, out, static_cast<float*>(nullptr), n_rowtiles, tile,
-                                    rows, d, scale, stream);
+                                    rows, rows_g, d, scale, stream);
   return (int)cudaGetLastError();
 }
 
@@ -732,9 +742,10 @@ template <typename F>
 int launch_dkv(const void* vals_t, int vals_kind, const int* tile_col_t,
                const int* tile_rowptr_t, const void* q, const void* k, const void* v,
                const void* g, const float* stats, float* dk, float* dv, int n_rowtiles,
-               int tile, int rows, int d, float scale, cudaStream_t stream) {
+               int tile, int rows, int rows_g, int d, float scale, cudaStream_t stream) {
   dispatch<LaunchBwd<true>::Of, F>(vals_kind, d, vals_t, tile_col_t, tile_rowptr_t, k, v, q,
-                                   g, stats, dk, dv, n_rowtiles, tile, rows, d, scale, stream);
+                                   g, stats, dk, dv, n_rowtiles, tile, rows, rows_g, d, scale,
+                                   stream);
   return (int)cudaGetLastError();
 }
 
@@ -744,64 +755,71 @@ int launch_dkv(const void* vals_t, int vals_kind, const int* tile_col_t,
 // (0 = launched).  The caller guarantees: vals (nt, tile, tile) f32
 // (vals_kind 0), int8 (1) or bf16 (2), contiguous and 16-byte aligned;
 // tile a multiple of 16; tile_col (nt) and tile_rowptr (n_rowtiles + 1)
-// int32; q, k, v, g (rows, d) f32 (the f32 entry points) or bf16 (_bf16),
-// the outputs (rows, d) f32, all contiguous and 16-byte aligned, and stats
-// (rows, 3) f32, contiguous; 0 < rows <= n_rowtiles * tile; d > 0.
+// int32; d > 0; every array contiguous, the feature arrays and the outputs
+// 16-byte aligned.  Rows: the own arrays (K3 q, num, ml; K4 q, g, stats,
+// dq; K5 k, v, dk, dv) have `rows` rows, 0 < rows <= n_rowtiles * tile;
+// the gathered arrays (K3 and K4 k, v; K5 q, g, stats) have `rows_g` rows,
+// and every tile column reads rows below ceil(rows_g / tile) * tile (a
+// column tile partly past rows_g reads zeros there; the wrappers check the
+// columns on the CPU and GraphParallel.place checks a partition's).
+// q, k, v, g are f32 in the f32 entry points and bf16 in the _bf16 ones;
+// stats, num, ml and the gradients are f32.
 
 extern "C" int plnlp_flash_tiles_fwd(const void* vals, int vals_kind, const int* tile_col,
                                      const int* tile_rowptr, const float* q, const float* k,
                                      const float* v, float* num, float* ml, int n_rowtiles,
-                                     int tile, int rows, int d, float scale,
+                                     int tile, int rows, int rows_g, int d, float scale,
                                      cudaStream_t stream) {
   return launch_fwd<float>(vals, vals_kind, tile_col, tile_rowptr, q, k, v, num, ml,
-                           n_rowtiles, tile, rows, d, scale, stream);
+                           n_rowtiles, tile, rows, rows_g, d, scale, stream);
 }
 
 extern "C" int plnlp_flash_tiles_fwd_bf16(const void* vals, int vals_kind,
                                           const int* tile_col, const int* tile_rowptr,
                                           const void* q, const void* k, const void* v,
                                           float* num, float* ml, int n_rowtiles, int tile,
-                                          int rows, int d, float scale, cudaStream_t stream) {
+                                          int rows, int rows_g, int d, float scale,
+                                          cudaStream_t stream) {
   return launch_fwd<bf16>(vals, vals_kind, tile_col, tile_rowptr, q, k, v, num, ml,
-                          n_rowtiles, tile, rows, d, scale, stream);
+                          n_rowtiles, tile, rows, rows_g, d, scale, stream);
 }
 
 extern "C" int plnlp_flash_tiles_dq(const void* vals, int vals_kind, const int* tile_col,
                                     const int* tile_rowptr, const float* q, const float* k,
                                     const float* v, const float* g, const float* stats,
-                                    float* out, int n_rowtiles, int tile, int rows, int d,
-                                    float scale, cudaStream_t stream) {
+                                    float* out, int n_rowtiles, int tile, int rows, int rows_g,
+                                    int d, float scale, cudaStream_t stream) {
   return launch_dq<float>(vals, vals_kind, tile_col, tile_rowptr, q, k, v, g, stats, out,
-                          n_rowtiles, tile, rows, d, scale, stream);
+                          n_rowtiles, tile, rows, rows_g, d, scale, stream);
 }
 
 extern "C" int plnlp_flash_tiles_dq_bf16(const void* vals, int vals_kind, const int* tile_col,
                                          const int* tile_rowptr, const void* q, const void* k,
                                          const void* v, const void* g, const float* stats,
-                                         float* out, int n_rowtiles, int tile, int rows, int d,
-                                         float scale, cudaStream_t stream) {
+                                         float* out, int n_rowtiles, int tile, int rows,
+                                         int rows_g, int d, float scale, cudaStream_t stream) {
   return launch_dq<bf16>(vals, vals_kind, tile_col, tile_rowptr, q, k, v, g, stats, out,
-                         n_rowtiles, tile, rows, d, scale, stream);
+                         n_rowtiles, tile, rows, rows_g, d, scale, stream);
 }
 
 extern "C" int plnlp_flash_tiles_dkv(const void* vals_t, int vals_kind,
                                      const int* tile_col_t, const int* tile_rowptr_t,
                                      const float* q, const float* k, const float* v,
                                      const float* g, const float* stats, float* dk, float* dv,
-                                     int n_rowtiles, int tile, int rows, int d, float scale,
-                                     cudaStream_t stream) {
+                                     int n_rowtiles, int tile, int rows, int rows_g, int d,
+                                     float scale, cudaStream_t stream) {
   return launch_dkv<float>(vals_t, vals_kind, tile_col_t, tile_rowptr_t, q, k, v, g, stats, dk,
-                           dv, n_rowtiles, tile, rows, d, scale, stream);
+                           dv, n_rowtiles, tile, rows, rows_g, d, scale, stream);
 }
 
 extern "C" int plnlp_flash_tiles_dkv_bf16(const void* vals_t, int vals_kind,
                                           const int* tile_col_t, const int* tile_rowptr_t,
                                           const void* q, const void* k, const void* v,
                                           const void* g, const float* stats, float* dk,
-                                          float* dv, int n_rowtiles, int tile, int rows, int d,
-                                          float scale, cudaStream_t stream) {
+                                          float* dv, int n_rowtiles, int tile, int rows,
+                                          int rows_g, int d, float scale, cudaStream_t stream) {
   return launch_dkv<bf16>(vals_t, vals_kind, tile_col_t, tile_rowptr_t, q, k, v, g, stats, dk,
-                          dv, n_rowtiles, tile, rows, d, scale, stream);
+                          dv, n_rowtiles, tile, rows, rows_g, d, scale, stream);
 }
 
 extern "C" const char* plnlp_cuda_error_string(int err) {

@@ -19,9 +19,11 @@ no edges, and their cotangents are zero.
 * TRANSFORMER — TransformerConv (one head): α_ij = softmax_j(⟨W_q x_i,
   W_k x_j⟩/√d), out = W_skip x_i + Σ_j α_ij W_v x_j, adjacency values
   ignored.  Dispatched in the JAX package's order: over a
-  ``GraphParallel`` the partitioned TransformerConv on K1
+  ``GraphParallel`` the partitioned TransformerConv
   (``parallel/graph_parallel.partitioned_transformer_conv``; x is this
-  rank's rows; a tiled partition raises, not ported yet); over a
+  rank's rows: K1 over a blocked partition, K3-K5 on the shard's tiles
+  and K1 on its residual over a tiled one,
+  ``parallel/tile_transformer.py``); over a
   ``HybridGraph`` the block-sparse flash path (``ops/tile_attention.py``);
   over a blocked ``Graph`` with ``tconv_map`` and a blocked transpose the
   hand-written backward on K1 (``ops/transformer.py``); over a

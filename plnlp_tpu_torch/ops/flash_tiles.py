@@ -18,9 +18,18 @@ Replaces the TPU kernels of ``plnlp_tpu/ops/pallas_attention.py``:
   destination): ``dk = Σ ds_tᵀ q``, ``dv = Σ α_tᵀ g``, accumulated per
   source row.
 
-q, k, v, g and stats share one row count ``rows`` (num_nodes, or n_pad
-under padded-carry); rows past it read as zero features and stats
-(0, 1, 0).  q, k, v and g are float32 or, all four, bfloat16; the tile
+Two row counts: the rows a call owns (its output rows, bounded by
+``tile_rowptr``'s row tiles) and the rows its tile columns gather from.
+K3 owns q and gathers k, v; K4 owns q, g and ``stats`` and gathers k, v;
+K5 owns k, v and gathers q, g and ``stats``.  Over one operand the two
+counts are equal (num_nodes, or n_pad under padded-carry); on a shard of a
+tiled partition the own rows are its ``rows_per_shard`` slots and the
+gathered rows the all-gathered buffer of every shard's
+(``parallel/tile_transformer.py``).  Rows past either count read as zero
+features and stats (0, 1, 0).  A tile column must start below the gathered
+rows: the wrappers check it on CPU tensors, where it costs nothing, and
+``GraphParallel.place`` checks a partition's tiles once; on the card it is
+the caller's guarantee.  q, k, v and g are float32 or, all four, bfloat16; the tile
 store ``vals`` is int8, float32 or bfloat16 and only its zero pattern is
 read.  The outputs and the stats are float32 either way.  In bfloat16 the
 functions are the TPU kernels' with bf16 features: the scores and g·v are
@@ -74,14 +83,15 @@ _CHUNK = 64
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     # vals, vals_kind, tile_col, tile_rowptr, q, k, v, num, ml,
-    # n_rowtiles, tile, rows, d, scale, stream
-    "fwd": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
+    # n_rowtiles, tile, rows, rows_g, d, scale, stream
+    "fwd": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     # vals, vals_kind, tile_col, tile_rowptr, q, k, v, g, stats, dq,
-    # n_rowtiles, tile, rows, d, scale, stream
-    "dq": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
+    # n_rowtiles, tile, rows, rows_g, d, scale, stream
+    "dq": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     # vals_t, vals_kind, tile_col_t, tile_rowptr_t, q, k, v, g, stats, dk,
-    # dv, n_rowtiles, tile, rows, d, scale, stream
-    "dkv": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
+    # dv, n_rowtiles, tile, rows, rows_g, d, scale, stream
+    "dkv": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float,
+            _P],
 }
 
 
@@ -98,6 +108,11 @@ def _tiles(a: torch.Tensor, n_rowtiles: int, t: int) -> torch.Tensor:
     if pad:
         a = torch.cat([a, a.new_zeros((pad, a.shape[1]))])
     return a.reshape(n_rowtiles, t, a.shape[1])
+
+
+def _gathered_tiles(rows_g: int, t: int) -> int:
+    """The column tiles of a gathered array of ``rows_g`` rows."""
+    return -(-rows_g // t)
 
 
 def _row_stats(stats: torch.Tensor, n_rowtiles: int, t: int):
@@ -127,9 +142,12 @@ def flash_tiles_fwd_reference(vals, tile_row, tile_col, q, k, v, n_rowtiles: int
     """K3's plain version, in two passes over the tile chunks: the row max,
     then the exp-weighted sums against it (the same partials as one online
     sweep; in bf16 the kernels round p against their running max, within
-    one bf16 ulp of each term)."""
+    one bf16 ulp of each term).  q has the own rows, k and v the gathered
+    rows."""
     t, rows, d = vals.shape[1], q.shape[0], q.shape[1]
-    qt, kt, vt = (_tiles(a, n_rowtiles, t) for a in (q, k, v))
+    n_g = _gathered_tiles(k.shape[0], t)
+    qt = _tiles(q, n_rowtiles, t)
+    kt, vt = _tiles(k, n_g, t), _tiles(v, n_g, t)
     trow, tcol = tile_row.long(), tile_col.long()
     m = qt.new_full((n_rowtiles * t,), float("-inf"))
     local = torch.arange(t, device=q.device)
@@ -158,9 +176,12 @@ def _alpha_ds(s, mask, m, den, delta, dav, scale):
 
 def flash_tiles_dq_reference(vals, tile_row, tile_col, q, k, v, g, stats, n_rowtiles: int,
                              scale: float):
-    """K4's plain version."""
+    """K4's plain version: q, g and stats have the own rows, k and v the
+    gathered rows."""
     t, rows, d = vals.shape[1], q.shape[0], q.shape[1]
-    qt, kt, vt, gt = (_tiles(a, n_rowtiles, t) for a in (q, k, v, g))
+    n_g = _gathered_tiles(k.shape[0], t)
+    qt, gt = _tiles(q, n_rowtiles, t), _tiles(g, n_rowtiles, t)
+    kt, vt = _tiles(k, n_g, t), _tiles(v, n_g, t)
     m, den, delta = _row_stats(stats, n_rowtiles, t)
     trow, tcol = tile_row.long(), tile_col.long()
     dq = qt.new_zeros((n_rowtiles, t, d))
@@ -177,13 +198,16 @@ def flash_tiles_dq_reference(vals, tile_row, tile_col, q, k, v, g, stats, n_rowt
 def flash_tiles_dkv_reference(vals_t, tile_row_t, tile_col_t, q, k, v, g, stats,
                               n_rowtiles: int, scale: float):
     """K5's plain version: source x destination orientation, stats per
-    destination column."""
-    t, rows, d = vals_t.shape[1], q.shape[0], q.shape[1]
-    qt, kt, vt, gt = (_tiles(a, n_rowtiles, t) for a in (q, k, v, g))
-    m, den, delta = _row_stats(stats, n_rowtiles, t)
+    destination column.  k and v have the own (source) rows; q, g and
+    stats the gathered (destination) rows."""
+    t, rows, d = vals_t.shape[1], k.shape[0], k.shape[1]
+    n_g = _gathered_tiles(q.shape[0], t)
+    kt, vt = _tiles(k, n_rowtiles, t), _tiles(v, n_rowtiles, t)
+    qt, gt = _tiles(q, n_g, t), _tiles(g, n_g, t)
+    m, den, delta = _row_stats(stats, n_g, t)
     src, dst = tile_row_t.long(), tile_col_t.long()
-    dk = qt.new_zeros((n_rowtiles, t, d))
-    dv = qt.new_zeros((n_rowtiles, t, d))
+    dk = kt.new_zeros((n_rowtiles, t, d))
+    dv = kt.new_zeros((n_rowtiles, t, d))
     for c in _chunks(vals_t.shape[0]):
         sr, ds_ = src[c], dst[c]
         qc, gc = qt[ds_], gt[ds_]
@@ -201,15 +225,18 @@ def flash_tiles_dkv_reference(vals_t, tile_row_t, tile_col_t, q, k, v, g, stats,
 # ---------------------------------------------------------------------------
 
 
-def _check(vals, tile_row, tile_col, tile_rowptr, feats, stats=None):
-    dev = feats[0].device
-    named = [("vals", vals), ("tile_row", tile_row), ("tile_col", tile_col),
-             ("tile_rowptr", tile_rowptr)] + [(f"feats[{i}]", a) for i, a in enumerate(feats)]
+def _check(vals, tile_row, tile_col, tile_rowptr, own, gathered, stats=None, stats_rows=0):
+    """Validate a call; returns (rows, rows_g): the own arrays' rows and the
+    gathered arrays' (``stats`` has ``stats_rows`` of them)."""
+    dev = own[0].device
+    named = ([("vals", vals), ("tile_row", tile_row), ("tile_col", tile_col),
+              ("tile_rowptr", tile_rowptr)] + [(f"own[{i}]", a) for i, a in enumerate(own)]
+             + [(f"gathered[{i}]", a) for i, a in enumerate(gathered)])
     if stats is not None:
         named.append(("stats", stats))
     for name, a in named:
         if a.device != dev:
-            raise ValueError(f"{name} is on {a.device}, q on {dev}")
+            raise ValueError(f"{name} is on {a.device}, the own rows on {dev}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if name.startswith("tile_") and a.dtype != torch.int32:
@@ -218,28 +245,38 @@ def _check(vals, tile_row, tile_col, tile_rowptr, feats, stats=None):
         raise TypeError(f"vals must be int8, float32 or bfloat16, got {vals.dtype}")
     if vals.dim() != 3 or vals.shape[1] != vals.shape[2]:
         raise ValueError(f"vals must be (nt, T, T), got {tuple(vals.shape)}")
-    if vals.shape[1] % 16:
-        raise ValueError(f"the tile size must be a multiple of 16, got {vals.shape[1]}")
+    t = vals.shape[1]
+    if t % 16:
+        raise ValueError(f"the tile size must be a multiple of 16, got {t}")
     if tile_row.shape != (vals.shape[0],) or tile_col.shape != (vals.shape[0],):
         raise ValueError("tile_row and tile_col must have one entry per tile")
-    shape, dtype = feats[0].shape, feats[0].dtype
+    dtype = own[0].dtype
     if dtype not in _FEATURES:
         raise TypeError(f"features must be float32 or bfloat16, got {dtype}")
-    for a in feats:
-        if a.dtype != dtype:
-            raise TypeError(f"q, k, v (and g) must share one dtype, got {a.dtype} and {dtype}")
-        if a.dim() != 2 or a.shape != shape:
-            raise ValueError(f"q, k, v (and g) must be one (rows, D) shape, got {tuple(a.shape)}")
-    if stats is not None and (stats.dtype != torch.float32 or stats.shape != (shape[0], 3)):
-        raise ValueError(f"stats must be float32 ({shape[0]}, 3), got {tuple(stats.shape)}")
-    if shape[0] > (tile_rowptr.shape[0] - 1) * vals.shape[1]:
-        raise ValueError(f"{shape[0]} rows exceed the row tiles of tile_rowptr")
+    for group, what in ((own, "own"), (gathered, "gathered")):
+        shape = group[0].shape
+        for a in group:
+            if a.dtype != dtype:
+                raise TypeError(f"q, k, v (and g) must share one dtype, got {a.dtype} and {dtype}")
+            if a.dim() != 2 or a.shape != shape or a.shape[1] != own[0].shape[1]:
+                raise ValueError(f"the {what} feature arrays must be one (rows, D) shape with "
+                                 f"the own arrays' D, got {tuple(a.shape)}")
+    rows, rows_g = own[0].shape[0], gathered[0].shape[0]
+    if stats is not None and (stats.dtype != torch.float32 or stats.shape != (stats_rows, 3)):
+        raise ValueError(f"stats must be float32 ({stats_rows}, 3), got {stats.dtype} "
+                         f"{tuple(stats.shape)}")
+    if rows > (tile_rowptr.shape[0] - 1) * t:
+        raise ValueError(f"{rows} own rows exceed the row tiles of tile_rowptr")
+    if dev.type == "cpu" and vals.shape[0] and int(tile_col.max()) >= _gathered_tiles(rows_g, t):
+        raise ValueError(f"tile column {int(tile_col.max())} starts at row "
+                         f"{int(tile_col.max()) * t}, past the {rows_g} gathered rows")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"the flash tile kernels run on cuda or cpu, not {dev}")
+    return rows, rows_g
 
 
-def _launch(kind: str, feats, ptrs, vals, tile_rowptr, scale: float):
-    rows, d = feats[0].shape
+def _launch(kind: str, feats, ptrs, vals, tile_rowptr, rows: int, rows_g: int, scale: float):
+    d = feats[0].shape[1]
     bf16 = feats[0].dtype == torch.bfloat16
     if d % (16 // feats[0].element_size()) == 0 and any(a.data_ptr() % 16 for a in feats):
         # the kernels stage rows with 16-byte loads when a row is a whole
@@ -259,65 +296,70 @@ def _launch(kind: str, feats, ptrs, vals, tile_rowptr, scale: float):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(vals.data_ptr(), _VALS_KIND[vals.dtype], *ptrs,
-                 tile_rowptr.shape[0] - 1, t, rows, d, float(scale), stream)
-    _build.check(lib, err, f"flash_tiles_{kind} launch ({feats[0].dtype}, T={t}, D={d})")
+                 tile_rowptr.shape[0] - 1, t, rows, rows_g, d, float(scale), stream)
+    _build.check(lib, err, f"flash_tiles_{kind} launch ({feats[0].dtype}, T={t}, D={d}, "
+                           f"rows {rows}, gathered {rows_g})")
     (LAUNCHES_BF16 if bf16 else LAUNCHES)[kind] += 1
 
 
 def flash_tiles_fwd(vals, tile_row, tile_col, tile_rowptr, q, k, v, scale: float):
     """K3: (num (rows, D), ml (rows, 2) = (m, den)), float32, over the
-    row-sorted tiles.  CUDA tensors launch the kernel of q's dtype (never
-    the other one, never through a cast); CPU tensors take
-    :func:`flash_tiles_fwd_reference`."""
-    _check(vals, tile_row, tile_col, tile_rowptr, (q, k, v))
+    row-sorted tiles, for q's own rows from the gathered k and v.  CUDA
+    tensors launch the kernel of q's dtype (never the other one, never
+    through a cast); CPU tensors take :func:`flash_tiles_fwd_reference`."""
+    rows, rows_g = _check(vals, tile_row, tile_col, tile_rowptr, (q,), (k, v))
     n_r = tile_rowptr.shape[0] - 1
     if q.device.type == "cpu":
         return flash_tiles_fwd_reference(vals, tile_row, tile_col, q, k, v, n_r, scale)
-    rows, d = q.shape
+    d = q.shape[1]
     num = torch.empty((rows, d), dtype=torch.float32, device=q.device)
     ml = torch.empty((rows, 2), dtype=torch.float32, device=q.device)
     if rows and d:
         _launch("fwd", (q, k, v),
                 (tile_col.data_ptr(), tile_rowptr.data_ptr(), q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), num.data_ptr(), ml.data_ptr()),
-                vals, tile_rowptr, scale)
+                vals, tile_rowptr, rows, rows_g, scale)
     return num, ml
 
 
 def flash_tiles_dq(vals, tile_row, tile_col, tile_rowptr, q, k, v, g, stats, scale: float):
-    """K4: dq (rows, D) float32 over the row-sorted tiles, from the global
-    row stats (M, den, δ).  CUDA tensors launch the kernel of q's dtype;
-    CPU tensors take :func:`flash_tiles_dq_reference`."""
-    _check(vals, tile_row, tile_col, tile_rowptr, (q, k, v, g), stats)
+    """K4: dq (rows, D) float32 over the row-sorted tiles, for q's own rows
+    (with g and the global row stats (M, den, δ) of those rows) from the
+    gathered k and v.  CUDA tensors launch the kernel of q's dtype; CPU
+    tensors take :func:`flash_tiles_dq_reference`."""
+    rows, rows_g = _check(vals, tile_row, tile_col, tile_rowptr, (q, g), (k, v), stats,
+                          q.shape[0])
     n_r = tile_rowptr.shape[0] - 1
     if q.device.type == "cpu":
         return flash_tiles_dq_reference(vals, tile_row, tile_col, q, k, v, g, stats, n_r, scale)
-    rows, d = q.shape
+    d = q.shape[1]
     dq = torch.empty((rows, d), dtype=torch.float32, device=q.device)
     if rows and d:
         _launch("dq", (q, k, v, g),
                 (tile_col.data_ptr(), tile_rowptr.data_ptr(), q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), g.data_ptr(), stats.data_ptr(), dq.data_ptr()),
-                vals, tile_rowptr, scale)
+                vals, tile_rowptr, rows, rows_g, scale)
     return dq
 
 
 def flash_tiles_dkv(vals_t, tile_row_t, tile_col_t, tile_rowptr_t, q, k, v, g, stats,
                     scale: float):
     """K5: (dk, dv), each (rows, D) float32, over the transposed
-    (source-sorted) tile set.  CUDA tensors launch the kernel of q's dtype;
-    CPU tensors take :func:`flash_tiles_dkv_reference`."""
-    _check(vals_t, tile_row_t, tile_col_t, tile_rowptr_t, (q, k, v, g), stats)
+    (source-sorted) tile set, for k's and v's own rows from the gathered q,
+    g and stats.  CUDA tensors launch the kernel of q's dtype; CPU tensors
+    take :func:`flash_tiles_dkv_reference`."""
+    rows, rows_g = _check(vals_t, tile_row_t, tile_col_t, tile_rowptr_t, (k, v), (q, g), stats,
+                          q.shape[0])
     n_r = tile_rowptr_t.shape[0] - 1
-    if q.device.type == "cpu":
+    if k.device.type == "cpu":
         return flash_tiles_dkv_reference(vals_t, tile_row_t, tile_col_t, q, k, v, g, stats,
                                          n_r, scale)
-    rows, d = q.shape
-    dk = torch.empty((rows, d), dtype=torch.float32, device=q.device)
-    dv = torch.empty((rows, d), dtype=torch.float32, device=q.device)
+    d = k.shape[1]
+    dk = torch.empty((rows, d), dtype=torch.float32, device=k.device)
+    dv = torch.empty((rows, d), dtype=torch.float32, device=k.device)
     if rows and d:
         _launch("dkv", (q, k, v, g),
                 (tile_col_t.data_ptr(), tile_rowptr_t.data_ptr(), q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), g.data_ptr(), stats.data_ptr(), dk.data_ptr(), dv.data_ptr()),
-                vals_t, tile_rowptr_t, scale)
+                vals_t, tile_rowptr_t, rows, rows_g, scale)
     return dk, dv

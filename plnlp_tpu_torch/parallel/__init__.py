@@ -1,7 +1,8 @@
 """The multi-device runtime over ``torch.distributed`` (port of
-plnlp_tpu/parallel, the blocked-CSR half): one process per card, a
-(data, node) mesh, the graph partition and halo plans, the graph-parallel
-SpMM on K1, and the sharded training state."""
+plnlp_tpu/parallel): one process per card, a (data, node) mesh, the graph
+partition (blocked or tiled) and halo plans, the graph-parallel SpMM (K1,
+and K2 over tiles), the partitioned TransformerConv (K1 over blocks, K3-K5
+over tiles) and the sharded training state."""
 
 from plnlp_tpu_torch.parallel.graph_parallel import (
     GraphParallel,
@@ -17,6 +18,7 @@ from plnlp_tpu_torch.parallel.mesh import (
     shard_params,
 )
 from plnlp_tpu_torch.parallel.partition import PartitionedGraph, partition_graph
+from plnlp_tpu_torch.parallel.tile_transformer import partitioned_tile_transformer_conv
 
 __all__ = [
     "Mesh",
@@ -30,4 +32,5 @@ __all__ = [
     "gather_node_features",
     "PartitionedGraph",
     "partition_graph",
+    "partitioned_tile_transformer_conv",
 ]

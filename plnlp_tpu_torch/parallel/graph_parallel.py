@@ -33,6 +33,8 @@ blocked (untiled) partition, with the hand-written backward of
 ``ops/transformer.py`` on K1: a destination's in-edges all lie on its
 shard, so each softmax is shard-local; the per-edge scalars cross to the
 source-sharded layout through ``bwd_gather_fwd`` after one all_gather.
+Over a tiled partition it runs ``parallel/tile_transformer.py`` (K3-K5 on
+the shard's tiles).
 
 :func:`gather_node_features` gathers the encoder's output rows of every
 rank back into original node order (the predictor indexes arbitrary
@@ -167,6 +169,13 @@ class GraphParallel:
             node_map = torch.from_numpy(pg.node_map).long()
         tiles = tiles_t = None
         if pg.tile:
+            # the flash kernels gather from the S * rows_per_shard rows of
+            # the all-gathered buffer; checked here, once, on the host
+            n_cols = pg.num_shards * rps // pg.tile
+            for name, t in (("tiles", pg.tiles[s]), ("tiles_t", pg.tiles_t[s])):
+                if t["col"].size and int(t["col"].max()) >= n_cols:
+                    raise ValueError(f"shard {s}'s {name} reach column tile {int(t['col'].max())},"
+                                     f" past the {n_cols} of the gathered buffer")
             tiles = _tiles_to(pg.tiles[s], pg.tile_store, dev)
             tiles_t = _tiles_to(pg.tiles_t[s], pg.tile_store, dev)
         slot_map, slot_stride = _padded_slot_map(pg, s)
@@ -434,24 +443,23 @@ class PartitionedAttn(torch.autograd.Function):
         return dq, dk, dv, None
 
 
-TILED_TRANSFORMER_NOT_PORTED = (
-    "TRANSFORMER over a tiled partition (K3-K5 on each shard, parallel/tile_transformer.py) "
-    "is not ported yet (ROADMAP queue 1 item 1)"
-)
-
-
 def partitioned_transformer_conv(gp: GraphParallel, lp, x: torch.Tensor) -> torch.Tensor:
     """One TransformerConv layer (``lp``: the ``lin_query``, ``lin_key``,
-    ``lin_value``, ``lin_skip`` linears) over a blocked partition: ``x`` is
-    this rank's (rows_per_shard, D) slot rows, and so is the result.
-    Collective: every rank of the node group calls it.  The exchange is the
-    all_gather whatever ``gp.comm`` says (as the JAX package), over the
-    forward and backward blocks ``GraphParallel.place`` puts on every
-    operand.  The linears stay under autograd on this rank's rows, so each
-    rank's parameter gradients are its partial sums, which
-    ``parallel.sharded.reduce_gradients`` sums over the world."""
+    ``lin_value``, ``lin_skip`` linears) over a partition: ``x`` is this
+    rank's (rows_per_shard, D) slot rows, and so is the result.
+    Collective: every rank of the node group calls it.  A tiled partition
+    takes ``parallel/tile_transformer.partitioned_tile_transformer_conv``
+    (K3-K5 on the shard's tiles, K1 on its residual), as the JAX package
+    routes it.  Over a blocked one the exchange is the all_gather whatever
+    ``gp.comm`` says (as the JAX package), over the forward and backward
+    blocks ``GraphParallel.place`` puts on every operand.  The linears stay
+    under autograd on this rank's rows, so each rank's parameter gradients
+    are its partial sums, which ``parallel.sharded.reduce_gradients`` sums
+    over the world."""
     if gp.tiles is not None:
-        raise NotImplementedError(TILED_TRANSFORMER_NOT_PORTED)
+        from plnlp_tpu_torch.parallel.tile_transformer import partitioned_tile_transformer_conv
+
+        return partitioned_tile_transformer_conv(gp, lp, x)
     if x.shape[0] != gp.rows_per_shard:
         raise ValueError(
             f"x has {x.shape[0]} rows; a rank holds rows_per_shard={gp.rows_per_shard} "

@@ -5,8 +5,9 @@
   parameter bits and Logger results as the run without the break.
 * ``--score_pairs`` equals the restored model's Scorer, under the hybrid
   relabel too, with pairs in original ids.
-* Flag values whose code is not ported (TRANSFORMER over the tiled
-  partition) raise NotImplementedError naming their ROADMAP item.
+* ``--num_shards 2 --encoder TRANSFORMER`` over the hybrid operand,
+  explicit and through ``auto``, reaches the TransformerConv over the
+  tiled partition.
 
 The JAX ``run_experiment`` is never called (its compiles cost seconds a
 case); the two packages' random draws never agree, so runs are compared
@@ -154,21 +155,38 @@ def test_score_pairs_equals_restored_scorer(tmp_path, train_backend):
     np.testing.assert_allclose(scores, want, rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("flag,item", [
-    pytest.param(dict(num_shards=2, encoder="TRANSFORMER", adj_backend="hybrid"),
-                 "queue 1 item 1\\b", id="hybrid"),
+class _Reached(Exception):
+    pass
+
+
+@pytest.mark.parametrize("flag", [
+    pytest.param(dict(num_shards=2, encoder="TRANSFORMER", adj_backend="hybrid"), id="hybrid"),
     pytest.param(dict(num_shards=2, encoder="TRANSFORMER", data_name=SBM, **TILES),
-                 "queue 1 item 1\\b", id="auto-hybrid"),
+                 id="auto-hybrid"),
 ])
-def test_unported_flags_raise(flag, item, monkeypatch):
-    """TRANSFORMER over the tiled partition, with --adj_backend hybrid
-    and with auto choosing hybrid (after its estimate; the mesh, which
-    needs torchrun's process group, is stubbed out: the check comes
-    before the partition is built)."""
-    args = _args(**flag)
-    monkeypatch.setattr(cli, "_make_mesh", lambda *_: None)
-    with pytest.raises(NotImplementedError, match=item):
-        _run(args)
+def test_tiled_transformer_flags_reach_the_layer(flag, monkeypatch):
+    """TRANSFORMER at --num_shards 2 with --adj_backend hybrid, and with
+    auto choosing hybrid after its estimate, builds the tiled partition and
+    trains through ``parallel/tile_transformer.py``.  No rank is spawned:
+    the mesh is rank 0's of two without a process group, and the layer is
+    a stub that stops the run on its first call (the multi-rank runs are
+    tests/test_torch_parallel_tiles.py's)."""
+    from plnlp_tpu_torch.parallel import Mesh
+    from plnlp_tpu_torch.parallel import tile_transformer
+
+    def stub(gp, lp, x):
+        raise _Reached(gp, x.shape)
+
+    monkeypatch.setattr(cli, "_make_mesh", lambda args, dev: Mesh(1, args.num_shards, device=dev))
+    monkeypatch.setattr(Mesh, "check", lambda self: self)
+    monkeypatch.setattr(tile_transformer, "partitioned_tile_transformer_conv", stub)
+    lines = []
+    with pytest.raises(_Reached) as reached:
+        _run(_args(**flag), log=lines.append)
+    gp, shape = reached.value.args
+    assert gp.pg.num_shards == 2 and gp.pg.tile == int(flag.get("tile_size", 256))
+    assert gp.tiles is not None and shape[0] == gp.rows_per_shard
+    assert any("-> hybrid" in str(line) for line in lines) == ("data_name" in flag)
 
 
 @pytest.mark.parametrize("backend", ["csr", "hybrid"])

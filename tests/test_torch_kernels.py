@@ -474,6 +474,53 @@ def test_flash_tiles_bf16_match_plain_versions(store, t, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d", [(32, 24), (64, 100), (256, 256), (32, 520)])
+def test_flash_tiles_split_counts(dtype, t, d):
+    """K3, K4, K5 (f32 on int8 tiles; bf16 on bf16 tiles) as the shards of
+    a 3-shard tiled partition run them: own rows 2 t a shard, gathered rows
+    6 t; K3 and K4 with q, g and the stats of the own rows and k, v of the
+    gathered ones, K5 with k, v of the own rows and q, g and the stats of
+    the gathered ones, against their plain versions with chip_smoke's
+    checks (phase 31d), a second launch of each bitwise equal.  Shard 2
+    holds no tile, shard 0 no transposed tile, row tile 1 of shard 1 no
+    tile: their rows come out (0, 0, -inf) from K3 and zero from K4, K5."""
+    _need_cuda()
+    import chip_smoke
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    shards, n_r = 3, 2
+    rps = n_r * t
+    grid = torch.argwhere(torch.rand(shards * n_r, shards * n_r, device="cuda",
+                                     generator=gen) < 0.5)
+    keep = ((grid[:, 0] // n_r != shards - 1) & (grid[:, 0] != n_r + 1)
+            & (grid[:, 1] // n_r != 0))
+    trow, tcol = grid[keep, 0].int(), grid[keep, 1].int()
+    mask = torch.rand(len(trow), t, t, device="cuda", generator=gen) < 0.1
+    vals = (mask * 1).to(torch.int8 if dtype == torch.float32 else torch.bfloat16)
+
+    def tile_set(rows, cols, v):  # sorted by the shard-local row tile
+        order = torch.argsort(rows.long() * shards * n_r + cols.long())
+        rows = rows[order].contiguous()
+        ptr = torch.cat([rows.new_zeros(1), torch.bincount(rows, minlength=n_r).cumsum(0).int()])
+        return v[order].contiguous(), rows, cols[order].contiguous(), ptr
+
+    sets = []
+    for s in range(shards):
+        f, b = trow // n_r == s, tcol // n_r == s
+        sets.append((tile_set(trow[f] - s * n_r, tcol[f], vals[f]),
+                     tile_set(tcol[b] - s * n_r, trow[b], vals[b].transpose(1, 2))))
+    assert not len(sets[-1][0][0]) and not len(sets[0][1][0])
+    q, k, v, g = (torch.randn(shards * rps, d, device="cuda", generator=gen).to(dtype)
+                  for _ in range(4))
+    counts = ft.LAUNCHES_BF16 if dtype == torch.bfloat16 else ft.LAUNCHES
+    before = dict(counts)
+    chip_smoke.check_flash_split(sets, q, k, v, g, rps)
+    assert counts == {"fwd": before["fwd"] + 2 * shards, "dq": before["dq"] + 2 * shards,
+                      "dkv": before["dkv"] + 2 * shards}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_scatter_matmul_takes_exact_zero_weights_mid_row(dtype):
     """K1 with weights computed as ops/transformer.py computes them, exact
     zeros at live slots: every third slot of the hub row (which crosses many

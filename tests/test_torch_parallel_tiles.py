@@ -25,19 +25,27 @@ hold its mesh functions to those).
   gradients and the four linears' gradients summed over the ranks (rtol
   1e-4, atol 1e-5) against the JAX package's single-device TRANSFORMER
   layer (``models.encoders._transformer_conv`` over a JAX ``Graph``).
+* The same layer over the tiled partition (``parallel/tile_transformer.py``:
+  K3-K5's plain versions on each shard with its own and the gathered row
+  counts, K1 on its residual) at S = 2 and 4, min_fill 3, 1 (no residual)
+  and 10**9 (no tile on any shard), on that graph with its duplicates
+  coalesced (a tile holds an edge once) and rows in row tiles no tile
+  covers, to the same tolerances.
 * One train step (DOT + AUC, Adam, dropout 0) at (data, node) = (1, 2),
-  SAGE over the tiled partition and TRANSFORMER over the blocked one,
-  against the port's own single-device step on the same graph and
+  SAGE and TRANSFORMER over the tiled partition and TRANSFORMER over the
+  blocked one, against the port's own single-device step on the same graph and
   parameters: loss rtol 1e-5, gradients rtol 1e-4 / atol 1e-5,
   parameters rtol 1e-4 / atol 1e-6, except TRANSFORMER's key bias: its
   gradient is exactly 0 (the softmax cancels q_i . b_k), both sides hold
   rounding residue within the gradients' atol, and Adam turns residue into
   steps of up to lr, so its parameters are held within 2 lr.
 * The CLI at ``--num_shards 2`` for one epoch, ``--adj_backend hybrid``
-  (SAGE) and ``--encoder TRANSFORMER --adj_backend csr``, against the
-  port's single-device CLI: epoch loss within rtol 1e-5.
+  (SAGE), ``--encoder TRANSFORMER --adj_backend csr`` and ``--encoder
+  TRANSFORMER --adj_backend hybrid``, against the port's single-device
+  CLI: epoch loss within rtol 1e-5.
 * The launches a pass (1 K2 and 1 K1 over tiles; TransformerConv 1 K1
-  forward, 3 backward), and TRANSFORMER over a tiled partition raising.
+  forward, 3 backward over blocks; over tiles K3 1 and K1 1 forward, K4 1,
+  K5 1 and K1 3 backward).
 """
 
 import contextlib
@@ -64,6 +72,7 @@ SPMM_VARIANTS = {  # name: (weighted, min_fill, dtype)
     "bf16": (True, MIN_FILL, "bfloat16"),
 }
 TCONV_CASES = [(c, r) for c in ("all_gather", "halo") for r in ("edges", "bfs")]
+TILED_MIN_FILLS = (MIN_FILL, 1, 10**9)
 NS, ES, B, LR = 64, 400, 64, 1e-2  # the train step
 CLI_DATA = "synthetic:hits:num_nodes=300,num_edges=3000"
 CLI_FLAGS = {
@@ -71,6 +80,8 @@ CLI_FLAGS = {
                    block_edges=32),
     "transformer": dict(encoder="TRANSFORMER", adj_backend="csr", block_rows=16,
                         block_edges=32),
+    "transformer-hybrid": dict(encoder="TRANSFORMER", adj_backend="hybrid", tile_size=16,
+                               tile_min_fill=3, block_rows=16, block_edges=32),
 }
 
 
@@ -163,40 +174,68 @@ def _tiled_spmm_cases(world):
     return out
 
 
-def _tconv_cases(world, layer):
+def _tconv_layer(layer):
     from plnlp_tpu_torch.convert import _load
     from plnlp_tpu_torch.models import Encoder
+
+    enc = Encoder(torch.Generator().manual_seed(0), "TRANSFORMER", D, D, 1)
+    with torch.no_grad():
+        _load(enc, {"layers": [layer]}, "encoder", set())
+    return enc.layers[0]
+
+
+def _tconv_run(lp, gp, x, cot):
+    """One layer over ``gp`` and its backward: values, the input gradient
+    (in node order) and the linears' gradients summed over the ranks."""
     from plnlp_tpu_torch.models.encoders import _transformer_conv
-    from plnlp_tpu_torch.parallel import (
-        gather_node_features, make_mesh, partition_graph, shard_node_features,
-    )
+    from plnlp_tpu_torch.parallel import gather_node_features, shard_node_features
+
+    lp.zero_grad()
+    xl = shard_node_features(torch.from_numpy(x), gp).requires_grad_(True)
+    yl = _transformer_conv(lp, gp, None, xl)
+    (yl * shard_node_features(torch.from_numpy(cot), gp)).sum().backward()
+    grads = {}
+    for name, p in lp.named_parameters():
+        g = p.grad.clone()
+        dist.all_reduce(g)  # each rank's partial sums
+        grads[name] = g.t().numpy() if name.endswith("weight") else g.numpy()
+    return (gather_node_features(yl.detach(), gp).numpy(),
+            gather_node_features(xl.grad, gp).numpy(), grads)
+
+
+def _tconv_cases(world, layer):
+    from plnlp_tpu_torch.parallel import make_mesh, partition_graph
     from plnlp_tpu_torch.parallel.graph_parallel import GraphParallel
     from plnlp_tpu_torch.parallel.partition import with_halo
 
     n, src, dst, x, cot = _tconv_graph()
     mesh = make_mesh(1, world)
-    enc = Encoder(torch.Generator().manual_seed(0), "TRANSFORMER", D, D, 1)
-    with torch.no_grad():
-        _load(enc, {"layers": [layer]}, "encoder", set())
-    lp = enc.layers[0]
+    lp = _tconv_layer(layer)
     out = {}
     for comm, reorder in TCONV_CASES:
         # duplicate edges kept: the partition without its coalesce
         pg = partition_graph(src, dst, None, num_nodes=n, num_shards=world, block=BLOCK,
                              coalesce=False, reorder=reorder)
         gp = GraphParallel.place(with_halo(pg) if comm == "halo" else pg, mesh, comm)
-        lp.zero_grad()
-        xl = shard_node_features(torch.from_numpy(x), gp).requires_grad_(True)
-        yl = _transformer_conv(lp, gp, None, xl)
-        (yl * shard_node_features(torch.from_numpy(cot), gp)).sum().backward()
-        grads = {}
-        for name, p in lp.named_parameters():
-            g = p.grad.clone()
-            dist.all_reduce(g)  # each rank's partial sums
-            grads[name] = g.t().numpy() if name.endswith("weight") else g.numpy()
-        out[(comm, reorder)] = (gather_node_features(yl.detach(), gp).numpy(),
-                                gather_node_features(xl.grad, gp).numpy(), grads,
-                                gp.comm, gp.pg.reorder)
+        out[(comm, reorder)] = (*_tconv_run(lp, gp, x, cot), gp.comm, gp.pg.reorder)
+    return out
+
+
+def _tiled_tconv_cases(world, layer):
+    """The layer over the tiled partition at each of TILED_MIN_FILLS, with
+    each shard's tile count and its row tiles no tile covers."""
+    from plnlp_tpu_torch.parallel import make_graph_parallel, make_mesh
+
+    n, src, dst, x, cot = _tconv_graph()
+    mesh = make_mesh(1, world)
+    lp = _tconv_layer(layer)
+    out = {}
+    for min_fill in TILED_MIN_FILLS:
+        gp = make_graph_parallel(src, dst, None, num_nodes=n, mesh=mesh, block=BLOCK, tile=TILE,
+                                 min_fill=min_fill)
+        uncovered = [int((np.diff(t["rowptr"]) == 0).sum()) for t in gp.pg.tiles]
+        out[min_fill] = (*_tconv_run(lp, gp, x, cot), gp.pg.tile_dense_edges,
+                         list(gp.pg.shard_tiles), uncovered)
     return out
 
 
@@ -216,9 +255,9 @@ def _step(model, graph, graph_t, pos, neg, mesh):
 
 
 def _step_cases():
-    """SAGE over the tiled partition and TRANSFORMER over the blocked one
-    at (data, node) = (1, 2), each beside the single-device step (every
-    rank runs it; rank 0's is returned)."""
+    """SAGE and TRANSFORMER over the tiled partition and TRANSFORMER over
+    the blocked one at (data, node) = (1, 2), each beside the single-device
+    step (every rank runs it; rank 0's is returned)."""
     from plnlp_tpu_torch.graph import prepare_graph
     from plnlp_tpu_torch.parallel import make_graph_parallel, make_mesh, shard_params
     from plnlp_tpu_torch.training import Model, ModelConfig
@@ -226,7 +265,8 @@ def _step_cases():
     src, dst, pos, neg = _step_data()
     mesh = make_mesh(1, 2)
     out = {}
-    for encoder, tile in (("SAGE", TILE), ("TRANSFORMER", 0)):
+    for case, encoder, tile in (("SAGE", "SAGE", TILE), ("TRANSFORMER", "TRANSFORMER", 0),
+                                ("TRANSFORMER-tiled", "TRANSFORMER", TILE)):
         cfg = ModelConfig(encoder=encoder, emb_hidden_channels=16, gnn_hidden_channels=16,
                           mlp_hidden_channels=16, batch_size=B, dropout=0.0, predictor="DOT",
                           loss_func="AUC")
@@ -237,8 +277,8 @@ def _step_cases():
         shard_params(model, gp)
         g, g_t = prepare_graph(src, dst, num_nodes=NS, block=BLOCK, device="cpu",
                                couple_transpose=encoder == "TRANSFORMER")
-        out[encoder] = (_step(model, gp, None, pos, neg, mesh), _step(twin, g, g_t, pos, neg, None),
-                        gp.pg.tile_dense_edges)
+        out[case] = (_step(model, gp, None, pos, neg, mesh), _step(twin, g, g_t, pos, neg, None),
+                     gp.pg.tile_dense_edges)
     return out
 
 
@@ -273,13 +313,14 @@ def ranks(jax_layer, cli_tmp, tmp_path_factory):
         2: [
             ("spmm", "_tiled_spmm_cases", (2,)),
             ("tconv", "_tconv_cases", (2, jax_layer)),
+            ("tconv_tiled", "_tiled_tconv_cases", (2, jax_layer)),
             ("step", "_step_cases", ()),
-            ("cli_hybrid", "_cli_case", (cli_tmp, "hybrid")),
-            ("cli_transformer", "_cli_case", (cli_tmp, "transformer")),
+            *((f"cli_{tag}", "_cli_case", (cli_tmp, tag)) for tag in CLI_FLAGS),
         ],
         4: [
             ("spmm", "_tiled_spmm_cases", (4,)),
             ("tconv", "_tconv_cases", (4, jax_layer)),
+            ("tconv_tiled", "_tiled_tconv_cases", (4, jax_layer)),
         ],
     }, tmp_path_factory.mktemp("ranks"), __name__)
 
@@ -444,8 +485,9 @@ def _flat_grads(lp):
             for k, sub in lp.items() for p, v in sub.items()}
 
 
-@pytest.mark.parametrize("world", [2, 4])
-def test_partitioned_transformer_matches_jax(world, ranks, jax_layer):
+def _jax_tconv(jax_layer, coalesce):
+    """The JAX package's single-device TRANSFORMER layer over the test
+    graph: values, input gradient and the linears' gradients."""
     import jax
     import jax.numpy as jnp
 
@@ -453,27 +495,58 @@ def test_partitioned_transformer_matches_jax(world, ranks, jax_layer):
     from plnlp_tpu.models.encoders import _transformer_conv
 
     n, src, dst, x, cot = _tconv_graph()
-    g = build_graph(src, dst, None, num_nodes=n, coalesce=False)
+    g = build_graph(src, dst, None, num_nodes=n, coalesce=coalesce)
     lp = jax.tree_util.tree_map(jnp.asarray, jax_layer)
     y, vjp = jax.vjp(lambda p, v: _transformer_conv(p, g, None, v), lp, jnp.asarray(x))
     dlp, dx = vjp(jnp.asarray(cot))
-    want_grads = _flat_grads(jax.tree_util.tree_map(np.asarray, dlp))
+    return np.asarray(y), np.asarray(dx), _flat_grads(jax.tree_util.tree_map(np.asarray, dlp))
+
+
+def _assert_tconv(got, want, msg):
+    (got_y, got_dx, got_grads), (y, dx, want_grads) = got, want
+    np.testing.assert_allclose(got_y, y, rtol=1e-5, atol=1e-5, err_msg=msg)
+    np.testing.assert_allclose(got_dx, dx, rtol=1e-4, atol=1e-5, err_msg=msg)
+    assert set(got_grads) == set(want_grads)
+    for k, w in want_grads.items():
+        np.testing.assert_allclose(got_grads[k], w, rtol=1e-4, atol=1e-5, err_msg=f"{msg} {k}")
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_partitioned_transformer_matches_jax(world, ranks, jax_layer):
+    want = _jax_tconv(jax_layer, coalesce=False)
     for comm, reorder in TCONV_CASES:
-        got_y, got_dx, got_grads, got_comm, got_reorder = ranks[world]["tconv"][(comm, reorder)]
+        *got, got_comm, got_reorder = ranks[world]["tconv"][(comm, reorder)]
         msg = f"S={world} {comm} {reorder}"
         assert (got_comm, got_reorder) == (comm, reorder), msg
-        np.testing.assert_allclose(got_y, np.asarray(y), rtol=1e-5, atol=1e-5, err_msg=msg)
-        np.testing.assert_allclose(got_dx, np.asarray(dx), rtol=1e-4, atol=1e-5, err_msg=msg)
-        assert set(got_grads) == set(want_grads)
-        for k, want in want_grads.items():
-            np.testing.assert_allclose(got_grads[k], want, rtol=1e-4, atol=1e-5,
-                                       err_msg=f"{msg} {k}")
+        _assert_tconv(got, want, msg)
 
 
-@pytest.mark.parametrize("encoder", ["SAGE", "TRANSFORMER"])
+@pytest.mark.parametrize("world", [2, 4])
+def test_tiled_partitioned_transformer_matches_jax(world, ranks, jax_layer):
+    """K3-K5 on each shard at split row counts plus K1 on its residual
+    against JAX's single-device layer over the coalesced edges; min_fill 1
+    leaves no residual edge, 10**9 no tile on any shard, and at min_fill 3
+    some shard has a row tile no tile covers (its rows come out of K3 as
+    (0, 0, -inf) and K4/K5 write 0 there)."""
+    want = _jax_tconv(jax_layer, coalesce=True)
+    n, src, dst, _, _ = _tconv_graph()
+    n_edges = len(np.unique(dst * n + src))
+    for min_fill in TILED_MIN_FILLS:
+        *got, dense_edges, shard_tiles, uncovered = ranks[world]["tconv_tiled"][min_fill]
+        msg = f"S={world} min_fill={min_fill}"
+        if min_fill == 1:
+            assert dense_edges == n_edges, msg
+        elif min_fill == 10**9:
+            assert dense_edges == 0 and not any(shard_tiles), msg
+        else:
+            assert 0 < dense_edges < n_edges and any(uncovered), msg
+        _assert_tconv(got, want, msg)
+
+
+@pytest.mark.parametrize("encoder", ["SAGE", "TRANSFORMER", "TRANSFORMER-tiled"])
 def test_train_step_matches_single_device(encoder, ranks):
     got, want, dense_edges = ranks[2]["step"][encoder]
-    if encoder == "SAGE":
+    if encoder != "TRANSFORMER":  # a tiled partition
         assert 0 < dense_edges < ES
     np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
     assert set(got["grads"]) == set(want["grads"])
@@ -489,28 +562,29 @@ def test_train_step_matches_single_device(encoder, ranks):
         np.testing.assert_allclose(got["params"][k], v, rtol=1e-4, atol=1e-6, err_msg=f"param {k}")
 
 
-@pytest.mark.parametrize("tag", ["hybrid", "transformer"])
+@pytest.mark.parametrize("tag", list(CLI_FLAGS))
 def test_cli_s2_matches_single_device(tag, ranks, cli_tmp):
     _run_cli(_cli_argv(cli_tmp, f"s1_{tag}", **CLI_FLAGS[tag]))
     (line,) = ranks[2][f"cli_{tag}"]
     assert line.startswith("partition: S=2")
-    assert ("tiles/shard=" in line) == (tag == "hybrid"), line
+    assert ("tiles/shard=" in line) == tag.endswith("hybrid"), line
     np.testing.assert_allclose(_epoch_loss(cli_tmp, f"s2_{tag}"),
                                _epoch_loss(cli_tmp, f"s1_{tag}"), rtol=1e-5)
 
 
-def test_launches_a_pass_and_tiled_transformer_raises(monkeypatch):
+def test_launches_a_pass(monkeypatch):
     """Over tiles a pass launches K2 once and K1 once (the residual); the
     partitioned TransformerConv launches K1 once forward and three times
-    backward; TRANSFORMER over a tiled partition raises naming its
-    ROADMAP item.  (Counting stubs stand in for the wrappers, which count
-    only on the card.)"""
+    backward over blocks, and over tiles K3 once and K1 once forward, K4,
+    K5 once and K1 three times backward.  (Counting stubs stand in for the
+    wrappers, which count only on the card.)"""
     from plnlp_tpu_torch.models.encoders import _transformer_conv
     from plnlp_tpu_torch.nn import linear
     from plnlp_tpu_torch.parallel import graph_parallel as G
     from plnlp_tpu_torch.parallel import make_graph_parallel, make_mesh, shard_node_features
+    from plnlp_tpu_torch.parallel import tile_transformer as TT
 
-    counts = {"K1": 0, "K2": 0}
+    counts = dict.fromkeys(("K1", "K2", "K3", "K4", "K5"), 0)
 
     def counting(name, fn):
         def wrapped(*a, **kw):
@@ -520,22 +594,33 @@ def test_launches_a_pass_and_tiled_transformer_raises(monkeypatch):
 
     monkeypatch.setattr(G, "scatter_matmul", counting("K1", G.scatter_matmul))
     monkeypatch.setattr(G, "tile_matmul", counting("K2", G.tile_matmul))
+    for name, fn in (("K3", "flash_tiles_fwd"), ("K4", "flash_tiles_dq"),
+                     ("K5", "flash_tiles_dkv")):
+        monkeypatch.setattr(TT, fn, counting(name, getattr(TT, fn)))
+
+    def launched(**want):
+        return {k: want.get(k, 0) for k in counts}
+
     src, dst, w, x, _ = _spmm_graph(True)
     mesh = make_mesh(1, 1)
     tiled = make_graph_parallel(src, dst, w, num_nodes=N, mesh=mesh, block=BLOCK, tile=TILE,
                                 min_fill=MIN_FILL)
     xl = shard_node_features(torch.from_numpy(x), tiled).requires_grad_(True)
     y = G.partitioned_spmm(tiled, xl, "mean")
-    assert counts == {"K1": 1, "K2": 1}
+    assert counts == launched(K1=1, K2=1)
     y.sum().backward()
-    assert counts == {"K1": 2, "K2": 2}
+    assert counts == launched(K1=2, K2=2)
     lp = {k: linear(D, D) for k in ("lin_query", "lin_key", "lin_value", "lin_skip")}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1"):
-        _transformer_conv(lp, tiled, None, xl)
+    counts.update(launched())
+    xt = shard_node_features(torch.from_numpy(x), tiled).requires_grad_(True)
+    y = _transformer_conv(lp, tiled, None, xt)
+    assert counts == launched(K1=1, K3=1)
+    y.sum().backward()
+    assert counts == launched(K1=4, K3=1, K4=1, K5=1)
     plain = make_graph_parallel(src, dst, None, num_nodes=N, mesh=mesh, block=BLOCK)
     xp = shard_node_features(torch.from_numpy(x), plain).requires_grad_(True)
-    counts.update(K1=0, K2=0)
+    counts.update(launched())
     y = _transformer_conv(lp, plain, None, xp)
-    assert counts == {"K1": 1, "K2": 0}
+    assert counts == launched(K1=1)
     y.sum().backward()
-    assert counts == {"K1": 4, "K2": 0}
+    assert counts == launched(K1=4)

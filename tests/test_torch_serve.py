@@ -190,15 +190,21 @@ def test_params_from_jax_rejects_mismatches():
 
 
 def test_model_rejects_unported_options():
-    # TRANSFORMER is ported over every operand but the tiled partition
-    # (K3-K5 on each shard); an operand of no known type is a TypeError
+    # TRANSFORMER is ported over every operand, the tiled partition too
+    # (K3-K5 on each shard), whose encode equals the one over blocked CSR;
+    # an operand of no known type is a TypeError
+    import copy
+
     from plnlp_tpu_torch.parallel import make_graph_parallel, make_mesh
 
     cfg = ModelConfig(encoder="TRANSFORMER", emb_hidden_channels=4, gnn_hidden_channels=4)
     tm = Model(cfg, num_nodes=4, device="cpu")
     with pytest.raises(TypeError, match="unknown aggregation operand"):
         tm.encode(object())
-    gp = make_graph_parallel([0, 1, 2, 3], [1, 2, 3, 0], num_nodes=4, mesh=make_mesh(1, 1),
-                             block=(16, 32), tile=16)
-    with pytest.raises(NotImplementedError, match="TRANSFORMER over a tiled partition"):
-        tm.place_rows(gp).encode(gp)
+    src, dst = [0, 1, 2, 3], [1, 2, 3, 0]
+    want = copy.deepcopy(tm).encode(tgraph.prepare_graph(src, dst, num_nodes=4, block=(16, 32),
+                                                         device="cpu")[0])
+    gp = make_graph_parallel(src, dst, num_nodes=4, mesh=make_mesh(1, 1), block=(16, 32), tile=16)
+    assert gp.tiles is not None and gp.pg.tile_dense_edges == 4
+    np.testing.assert_allclose(tm.place_rows(gp).encode(gp).numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-6)
