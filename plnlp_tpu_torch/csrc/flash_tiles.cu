@@ -77,7 +77,8 @@
 //      to den and p v_j to num in list order.  A row of the SBM holds ~9
 //      nonzeros, so it fits one chunk, its m is exact and nothing is
 //      rescaled.  One sweep that rescales whenever the running max grows
-//      times the same (chip_sweep_flash.py).
+//      times the same (chip_sweep_flash.py).  bf16 features with d % 8 ==
+//      0 take the packed kernel instead (below).
 //   K4, K5 one entry at a time (drain_bwd): every lane gathers its columns of
 //      the entry's two rows (k_j and v_j for K4; q_i and g_i, with the
 //      entry's stats, for K5), s = q . k and g . v are lane partials and one
@@ -131,6 +132,25 @@
 // 0.971 ms for the f32 ones in the same run: halving the gather's bytes
 // buys 5-22%, so per-entry work (the butterflies and expf of K4 and K5,
 // K3's lane-per-entry scores), not the gather, sets their time.
+//
+// K3 in bf16, redesigned (flash_fwd_packed_kernel).  The lane-per-entry
+// drain above spends most of its time on the scores (chip_sweep_flash.py,
+// one H100 80GB HBM3 at 700.00 W, the SBM shape, int8 tiles: the list scan
+// alone 0.220 ms, the scan and the scores 0.651, the scan and the v rows
+// 0.478, all 0.887; bound 0.233 ms by bytes): a row holds ~9 entries, so
+// ~9 of 32 lanes score and the warp issues every instruction of a 256-fma
+// chain for them.  The packed kernel gives a warp kRowsPk rows and scores
+// the chunks of both in one 32-lane pass, each row keeping drain_fwd's
+// chunks, chunk max and rescale, so the bits are the same.  What it must
+// not give up is warps: each warp walks its rows' scans, scores and v rows
+// one after another, and the kernel is bound by the latency of those
+// steps, so it keeps its shared memory to the list (2.5 KB a warp) and
+// reads k and v from global memory as drain_fwd does.  Versions that
+// copied the k and v rows into shared memory with cp.async, or packed 8
+// rows a warp, held 6-16 warps an SM and were slower than drain_fwd
+// (PERF.md).  Measured (the same script and card): 0.745 ms on int8 tiles
+// and 0.794 on bf16 tiles against drain_fwd's 0.883 and 0.895 in the same
+// run, 3.2x the bound; 1 row a warp 0.975, 3 rows 0.741, 4 rows 0.89-1.0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -176,6 +196,17 @@ constexpr int kCap = 2 * kChunk;  // list entries per warp
 constexpr int kMinBlocksFwd = 4;
 constexpr int kMinBlocksDq = 4;
 constexpr int kMinBlocksDkv = 3;
+
+// K3 with bf16 features and 16-byte rows (the packed design, below; set by
+// timing on the H100: chip_sweep_flash.py).
+constexpr int kWarpsPk = 4;        // warps a block
+constexpr int kRowsPk = 2;         // destination rows a warp, one after another
+constexpr int kUnrollPk = 2;       // v rows in flight
+constexpr int kGroupPk = 2;        // tile-row items (kChunk columns) loaded a group ahead
+constexpr int kMinBlocksPk = 7;    // blocks an SM
+constexpr int kRing = 512;         // list entries a warp (a power of two, > 64 + kChunk)
+static_assert(kRowsPk < 128, "a list entry's tag holds its local row in 7 bits");
+constexpr int kWarpBytesPk = kRing * 4 + kRing;
 
 enum Kind { kFwd, kDq, kDkv };
 
@@ -504,6 +535,326 @@ flash_fwd_kernel(const V* __restrict__ vals, const int* __restrict__ tile_col,
 }
 
 // ---------------------------------------------------------------------------
+// K3 in bf16: the chunks of several rows packed into the lanes
+// ---------------------------------------------------------------------------
+
+// A warp's state while it walks the packed list: the row whose sums are in
+// registers (cur, local to the warp's kRowsPk rows; -1 before the first),
+// its running max and sums, and the rows [0, done) already written.
+struct PkRow {
+  int cur, done;
+  float m, den;
+  float num[8];
+};
+
+// A list entry's tag: the local row (low 7 bits) and whether it starts a
+// chunk (bit 7): a chunk is what drain_fwd takes as one, the row's entries
+// from one of its drains, 32 at a time.
+constexpr int kChunkStart = 0x80;
+
+// Writes the warp's local row lr: its sums (cur), or an empty row.
+__device__ __forceinline__ void put_row_pk(float* __restrict__ num, float* __restrict__ ml,
+                                           int64_t grow, const float (&v)[8], float m,
+                                           float den, int c0, int lane, int d) {
+  store_cols<true, bf16>(num + grow * d, c0, lane, d, v);
+  if (blockIdx.z == 0 && lane == 0) {
+    ml[grow * 2] = m;
+    ml[grow * 2 + 1] = den;
+  }
+}
+
+// Writes the rows before local row `upto`: the row in registers, then the
+// rows with no entry as (0, 0, -inf).
+__device__ __forceinline__ void flush_rows_pk(PkRow& w, int upto, float* __restrict__ num,
+                                              float* __restrict__ ml, int64_t grow0, int c0,
+                                              int lane, int d) {
+  if (w.cur >= 0 && w.cur < upto) {
+    put_row_pk(num, ml, grow0 + w.cur, w.num, w.m, w.den, c0, lane, d);
+    w.done = w.cur + 1;
+  }
+  float z[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) z[c] = 0.f;
+  for (int r = w.done; r < upto; ++r)
+    put_row_pk(num, ml, grow0 + r, z, -INFINITY, 0.f, c0, lane, d);
+  if (upto > w.done) w.done = upto;
+}
+
+// One pass over the list entries [head, head + n_b), whole chunks of one
+// or more rows, lane u taking entry head + u.  The scores: each lane's
+// q_i . k_j as one fma chain in column order (dot_seq), its row's q_i and
+// its entry's k_j read by the lane itself.  Then per chunk the max, with
+// the row's earlier max, sets m; the weights p = exp(s - m); and the warp
+// walks the entries in order, kUnrollPk v rows in flight: at a chunk's
+// first entry the row's sums are rescaled once by exp(m_old - m) (a new
+// row starts from (-inf, 0, 0)), then den += p and num += bf16(p) v_j.
+// That is drain_fwd's arithmetic row for row, so the bits are its.
+__device__ __forceinline__ void pass_pk(const int* lst, const unsigned char* tag, int head,
+                                        int n_b, PkRow& w, const bf16* __restrict__ q,
+                                        const bf16* __restrict__ k, const bf16* __restrict__ v,
+                                        float* __restrict__ num, float* __restrict__ ml,
+                                        int64_t grow0, int rows_g, int c0, int lane, int d,
+                                        float scale) {
+  const bool act = lane < n_b;
+  const int pos = (head + lane) & (kRing - 1);
+  const int jrow = act ? lst[pos] : 0;
+  const int tg = act ? tag[pos] : 0x7f;
+  const int lr = tg & 0x7f;
+  const bool scored = act && jrow < rows_g;
+  const int crow_lane = scored ? jrow : -1;
+  float s = 0.f;
+  if (scored) s = dot_seq<true>(q + (grow0 + lr) * d, k + (int64_t)jrow * d, d);
+  s = act ? (scored ? s : 0.f) * scale : -INFINITY;
+
+  const int lr_prev = __shfl_up_sync(kFull, lr, 1);
+  const unsigned row_starts = __ballot_sync(kFull, lane == 0 || lr != lr_prev);
+  const unsigned below = (2u << lane) - 1u;  // lanes 0 .. lane
+  const int seg = 31 - __clz((int)(row_starts & below));
+  float mx = s;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float t = __shfl_up_sync(kFull, mx, off);
+    if (lane - off >= seg) mx = fmaxf(mx, t);
+  }
+  const unsigned chunk_starts =
+      __ballot_sync(kFull, act && (tg & kChunkStart)) | (n_b < 32 ? 1u << n_b : 0u);
+  const unsigned above = chunk_starts & ~below;
+  const int end = above ? __ffs((int)above) - 2 : 31;
+  float m = __shfl_sync(kFull, mx, end);
+  if (lr == w.cur) m = fmaxf(w.m, m);
+  const float p_lane = expf(s - (isfinite(m) ? m : 0.f));
+
+  const int vc = c0 + 8 * lane;
+  for (int u = 0; u < n_b; u += kUnrollPk) {
+    uint4 x[kUnrollPk];
+#pragma unroll
+    for (int uu = 0; uu < kUnrollPk; ++uu) {
+      const int row = __shfl_sync(kFull, crow_lane, (u + uu) & 31);
+      x[uu] = make_uint4(0u, 0u, 0u, 0u);
+      if (u + uu < n_b && row >= 0 && vc < d)
+        x[uu] = __ldg(reinterpret_cast<const uint4*>(v + (int64_t)row * d + vc));
+    }
+#pragma unroll
+    for (int uu = 0; uu < kUnrollPk; ++uu) {
+      const int e = u + uu;
+      if (e >= n_b) break;  // warp-uniform
+      const float p = __shfl_sync(kFull, p_lane, e);
+      const float m_e = __shfl_sync(kFull, m, e);
+      const int lr_e = __shfl_sync(kFull, lr, e);
+      if (chunk_starts >> e & 1u) {
+        if (lr_e != w.cur) {
+          flush_rows_pk(w, lr_e, num, ml, grow0, c0, lane, d);
+          w.cur = lr_e;
+          w.m = -INFINITY;
+          w.den = 0.f;
+#pragma unroll
+          for (int c = 0; c < 8; ++c) w.num[c] = 0.f;
+        }
+        const float m_safe = isfinite(m_e) ? m_e : 0.f;
+        const float r = isfinite(w.m) ? expf(w.m - m_safe) : 0.f;
+        w.m = m_e;
+        w.den *= r;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) w.num[c] *= r;
+      }
+      w.den += p;
+      const float pv = round_to<bf16>(p);
+      float xv[8];
+      unpack8(x[uu], xv);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) w.num[c] = fmaf(pv, xv[c], w.num[c]);
+    }
+  }
+  __syncwarp();
+}
+
+// Eight values of a tile row as loaded (int8, bf16 or f32), and which of
+// them are nonzero, so a group's loads are all issued before the first is
+// tested.
+template <typename V>
+struct Vals8;
+template <>
+struct Vals8<int8_t> {
+  int2 r;
+  __device__ __forceinline__ void load(const int8_t* p) {
+    r = __ldg(reinterpret_cast<const int2*>(p));
+  }
+  __device__ __forceinline__ unsigned nonzero() const {
+    unsigned nz = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      nz |= ((r.x >> (8 * j)) & 0xff) ? 1u << j : 0u;
+      nz |= ((r.y >> (8 * j)) & 0xff) ? 1u << (4 + j) : 0u;
+    }
+    return nz;
+  }
+};
+template <>
+struct Vals8<bf16> {
+  uint4 r;
+  __device__ __forceinline__ void load(const bf16* p) {
+    r = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ unsigned nonzero() const {
+    const unsigned w[4] = {r.x, r.y, r.z, r.w};
+    unsigned nz = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)  // -0 is zero
+      nz |= (w[j / 2] >> (16 * (j & 1)) & 0x7fffu) ? 1u << j : 0u;
+    return nz;
+  }
+};
+template <>
+struct Vals8<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = __ldg(reinterpret_cast<const float4*>(p));
+    b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  }
+  __device__ __forceinline__ unsigned nonzero() const {
+    const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    unsigned nz = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) nz |= v[j] != 0.f ? 1u << j : 0u;
+    return nz;
+  }
+};
+
+// K3 for bf16 q, k, v with d % 8 == 0: a warp owns kRowsPk destination rows
+// of a row tile, one after another, and walks their tile rows (scan_row's
+// walk, kGroupPk items of kChunk columns loaded a group ahead, across the
+// rows) appending their nonzeros to one list in shared memory, each tagged
+// with its row and whether it starts a chunk as drain_fwd would chunk it
+// (32 at a time from each of the row's drains, which come where
+// drain_fwd's list of kCap would overflow).  Whenever 32 entries of whole
+// chunks are ready it runs a pass over as many whole chunks as fit in 32
+// lanes, so the lanes score the entries of several short rows at once.
+template <typename V>
+__global__ void __launch_bounds__(kWarpsPk * 32, kMinBlocksPk)
+flash_fwd_packed_kernel(const V* __restrict__ vals, const int* __restrict__ tile_col,
+                        const int* __restrict__ tile_rowptr, const bf16* __restrict__ q,
+                        const bf16* __restrict__ k, const bf16* __restrict__ v,
+                        float* __restrict__ num, float* __restrict__ ml, int tile, int rows,
+                        int rows_g, int d, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_pk[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  unsigned char* mine = smem_pk + warp * kWarpBytesPk;
+  int* lst = reinterpret_cast<int*>(mine);
+  unsigned char* tag = mine + kRing * 4;
+  constexpr int kRowsPerBlock = kWarpsPk * kRowsPk;
+  const int n_slices = (tile + kRowsPerBlock - 1) / kRowsPerBlock;
+  const int rt = blockIdx.x / n_slices;
+  const int slice = blockIdx.x - rt * n_slices;
+  const int c0 = blockIdx.z * kSlice;
+  const int t_begin = __ldg(tile_rowptr + rt), t_end = __ldg(tile_rowptr + rt + 1);
+  const int r0 = slice * kRowsPerBlock + warp * kRowsPk;  // the warp's first row in the tile
+  const int64_t grow0 = (int64_t)rt * tile + r0;
+  const int n_rows = (int)min((int64_t)min(kRowsPk, tile - r0), (int64_t)rows - grow0);
+  if (n_rows <= 0) return;  // warp-uniform
+
+  PkRow w;
+  w.cur = -1;
+  w.done = 0;
+  w.m = -INFINITY;
+  w.den = 0.f;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) w.num[c] = 0.f;
+  // entries [head, ready) are in whole chunks, [ready, tail) in the open one
+  int head = 0, ready = 0, tail = 0;
+  auto run_passes = [&](int min_ready) {
+    while (ready - head >= min_ready && ready > head) {
+      // the longest run of whole chunks from head that fits in 32 lanes
+      const int avail = ready - head;
+      const int off = lane + 1;
+      const bool boundary = off < avail ? (tag[(head + off) & (kRing - 1)] & kChunkStart) != 0
+                                        : off == avail;
+      const int n_b = 32 - __clz((int)__ballot_sync(kFull, boundary));
+      pass_pk(lst, tag, head, n_b, w, q, k, v, num, ml, grow0, rows_g, c0, lane, d, scale);
+      head += n_b;
+      __syncwarp();
+    }
+  };
+
+  // the items (row lr, tile-row chunk qi) in order, f = lr * n_items + qi
+  const int n_chunks = (tile + kChunk - 1) / kChunk;
+  const int n_items = (t_end - t_begin) * n_chunks;
+  const int total = n_rows * n_items;
+  const int64_t tt = (int64_t)tile * tile;
+  Vals8<V> cur[kGroupPk], nxt[kGroupPk];
+  int tc_cur[kGroupPk], tc_nxt[kGroupPk];  // the item's tile column, -1 past the tile
+  auto load_group = [&](int f0, Vals8<V> (&g)[kGroupPk], int (&tc)[kGroupPk]) {
+#pragma unroll
+    for (int j = 0; j < kGroupPk; ++j) {
+      const int f = f0 + j;
+      tc[j] = -1;
+      if (f < total) {
+        const int lr = f / n_items, qi = f - lr * n_items;
+        const int i = t_begin + qi / n_chunks;
+        const int col = (qi % n_chunks) * kChunk + 8 * lane;
+        if (col < tile) {
+          g[j].load(vals + i * tt + (int64_t)(r0 + lr) * tile + col);
+          tc[j] = __ldg(tile_col + i);
+        }
+      }
+    }
+  };
+  load_group(0, cur, tc_cur);
+  int nd = 0;  // the row's entries since drain_fwd's last drain
+  for (int f0 = 0; f0 < total; f0 += kGroupPk) {
+    load_group(f0 + kGroupPk, nxt, tc_nxt);
+#pragma unroll
+    for (int j = 0; j < kGroupPk; ++j) {
+      const int f = f0 + j;
+      if (f >= total) break;  // warp-uniform
+      const int lr = f / n_items, qi = f - lr * n_items;
+      if (qi == 0 && lr > 0) {  // the row before is whole
+        ready = tail;
+        run_passes(32);
+        nd = 0;
+      }
+      const int xcol = tc_cur[j] * tile + (qi % n_chunks) * kChunk + 8 * lane;
+      const unsigned nz = tc_cur[j] >= 0 ? cur[j].nonzero() : 0u;
+      const int cnt = __popc(nz);
+      int incl = cnt;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int t = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += t;
+      }
+      const int total_j = __shfl_sync(kFull, incl, 31);
+      if (nd + total_j > kCap) nd = 0;  // drain_fwd drains here
+      int i = incl - cnt;
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+        if (nz >> b & 1u) {
+          const int at = (tail + i) & (kRing - 1);
+          lst[at] = xcol + b;
+          tag[at] = (unsigned char)(lr | ((nd + i) % 32 == 0 ? kChunkStart : 0));
+          ++i;
+        }
+      }
+      if (total_j) {
+        const int last = (nd + total_j - 1) & ~31;  // the item's last chunk start, if any
+        if (last >= nd) ready = tail + (last - nd);
+      }
+      tail += total_j;
+      nd += total_j;
+      __syncwarp();
+      run_passes(32);
+    }
+#pragma unroll
+    for (int j = 0; j < kGroupPk; ++j) {
+      cur[j] = nxt[j];
+      tc_cur[j] = tc_nxt[j];
+    }
+  }
+  ready = tail;  // the last row's last chunk is whole
+  run_passes(1);
+  flush_rows_pk(w, n_rows, num, ml, grow0, c0, lane, d);
+}
+
+// ---------------------------------------------------------------------------
 // K4, K5: gradients
 // ---------------------------------------------------------------------------
 
@@ -687,15 +1038,30 @@ void dispatch(int vals_kind, int d, Args... args) {
 }
 
 // K3 takes no wide path: a lane's score runs over the full d in any slice.
+// bf16 features with 16-byte rows take the packed kernel.
 template <typename V, typename F, bool VEC, bool WIDE>
 struct LaunchFwd {
   static void run(const void* vals, const int* tc, const int* tp, const void* q,
                   const void* k, const void* v, float* num, float* ml, int nr, int tile,
                   int rows, int rows_g, int d, float scale, cudaStream_t stream) {
-    flash_fwd_kernel<V, F, VEC><<<grid_of(kFwd, nr, tile, d), kThreads, 0, stream>>>(
-        static_cast<const V*>(vals), tc, tp, static_cast<const F*>(q),
-        static_cast<const F*>(k), static_cast<const F*>(v), num, ml, tile, rows, rows_g, d,
-        scale);
+    if constexpr (sizeof(F) == 2 && VEC) {
+      constexpr int kRowsPerBlock = kWarpsPk * kRowsPk;
+      const dim3 grid(nr * ((tile + kRowsPerBlock - 1) / kRowsPerBlock), 1,
+                      (d + kSlice - 1) / kSlice);
+      constexpr int bytes = kWarpsPk * kWarpBytesPk;
+      if (bytes > 48 * 1024)
+        cudaFuncSetAttribute(flash_fwd_packed_kernel<V>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_fwd_packed_kernel<V><<<grid, kWarpsPk * 32, bytes, stream>>>(
+          static_cast<const V*>(vals), tc, tp, static_cast<const bf16*>(q),
+          static_cast<const bf16*>(k), static_cast<const bf16*>(v), num, ml, tile, rows,
+          rows_g, d, scale);
+    } else {
+      flash_fwd_kernel<V, F, VEC><<<grid_of(kFwd, nr, tile, d), kThreads, 0, stream>>>(
+          static_cast<const V*>(vals), tc, tp, static_cast<const F*>(q),
+          static_cast<const F*>(k), static_cast<const F*>(v), num, ml, tile, rows, rows_g, d,
+          scale);
+    }
   }
 };
 

@@ -14,9 +14,13 @@ cuts the destination-sorted slot array into equal runs, one warp each, so a
 hub row-block no longer serializes; rows that cross runs are summed in a
 second pass in a fixed order, so the result is the same on every launch.
 It fuses the gather ``x[blk_src]`` that the JAX path materializes.  Its
-wrapper :func:`scatter_matmul` launches it for CUDA tensors (``out`` from
-``torch.zeros``, the carries in scratch from ``torch.empty``) and uses
-:func:`scatter_matmul_reference` only for CPU tensors.
+wrapper :func:`scatter_matmul` launches it for CUDA tensors and uses
+:func:`scatter_matmul_reference` only for CPU tensors.  The carries go to
+scratch from ``torch.empty``; ``out`` comes from ``torch.zeros`` in
+float32, and from ``torch.empty`` in bfloat16, whose kernel writes every
+row (rows no live slot reaches as exact zeros, found from a bitmap of the
+rows it reached that it keeps after the run rows in its scratch), so it
+needs no memset of ``out``.
 """
 
 from __future__ import annotations
@@ -115,6 +119,27 @@ def scatter_matmul(
         )
     if x.device.type != "cuda":
         raise ValueError(f"scatter_matmul runs on cuda or cpu, not {x.device}")
+    bf16 = x.dtype == torch.bfloat16
+    d = x.shape[1]
+    if out_rows == 0 or d == 0 or blk_src.numel() == 0:
+        return torch.zeros((out_rows, d), dtype=x.dtype, device=x.device)
+    # the bf16 kernel writes every row; the f32 one only the rows it reaches
+    out = (torch.empty if bf16 else torch.zeros)((out_rows, d), dtype=x.dtype, device=x.device)
+    _launch(x, blk_src, blk_local, blk_weight, blk_rowptr, block_rows, out)
+    if bf16:
+        LAUNCHES_BF16 += 1
+    else:
+        LAUNCHES += 1
+    return out
+
+
+def _launch(x, blk_src, blk_local, blk_weight, blk_rowptr, block_rows: int, out):
+    """Launches the kernel of x's dtype into ``out`` (out_rows, D) on the
+    current stream: checked, non-empty CUDA tensors, ``out`` zeroed in
+    float32 and of any contents in bfloat16.  The scratch: the carries
+    (2 rows of D float32 a run of slots) and the run rows (2 int32 a run;
+    in bfloat16 one more for each 32 rows of ``out``, the bitmap of the
+    rows the kernel reached)."""
     from plnlp_tpu_torch import _build
 
     lib = _build.load("scatter_matmul")
@@ -122,14 +147,11 @@ def scatter_matmul(
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     nblk, block_edges = blk_src.shape
-    d = x.shape[1]
-    out = torch.zeros((out_rows, d), dtype=x.dtype, device=x.device)
-    run_slots = lib.plnlp_scatter_matmul_run_slots()
-    n_runs = -(-nblk * block_edges // run_slots)
-    if out_rows == 0 or d == 0 or n_runs == 0:
-        return out
+    out_rows, d = out.shape
+    n_runs = -(-nblk * block_edges // lib.plnlp_scatter_matmul_run_slots())
+    words = -(-out_rows // 32) if x.dtype == torch.bfloat16 else 0
     carry = torch.empty((2 * n_runs, d), dtype=torch.float32, device=x.device)
-    run_rows = torch.empty(2 * n_runs, dtype=torch.int32, device=x.device)
+    run_rows = torch.empty(2 * n_runs + words, dtype=torch.int32, device=x.device)
     # 16 bytes of x's elements per vector load: 4 f32 or 8 bf16
     vec = d % (16 // x.element_size()) == 0 and x.data_ptr() % 16 == 0
     with torch.cuda.device(x.device):
@@ -141,8 +163,3 @@ def scatter_matmul(
             out_rows, block_rows, nblk, block_edges, d, int(vec), stream,
         )
     _build.check(lib, err, f"scatter_matmul launch ({x.dtype}, R={block_rows}, D={d})")
-    if x.dtype == torch.bfloat16:
-        LAUNCHES_BF16 += 1
-    else:
-        LAUNCHES += 1
-    return out

@@ -198,36 +198,70 @@ def _within_bf16_tolerance(got, want, abs_sum):
                  <= 1e-5 + 1e-6 * abs_sum + 2**-7 * want.float().abs()).all())
 
 
+def _small_graph():
+    """A launch far too small to fill the card: 300 edges into 40 of 3,000
+    rows (a few runs; most of the output is rows no edge reaches)."""
+    rng = np.random.default_rng(2)
+    n = 3000
+    dst = rng.integers(0, 40, 300) * 7
+    w = rng.random(300).astype(np.float32) + 0.1
+    return n, [tgraph.build_graph(rng.integers(0, n, 300), dst, w, num_nodes=n,
+                                  block=(512, 512), device="cuda")]
+
+
+def _bf16_into_nan(x, blk_src, blk_local, blk_weight, blk_rowptr, block_rows, out_rows):
+    """The bf16 K1 launched as its wrapper launches it, into an output
+    filled with NaN (the wrapper's comes from torch.empty): every row must
+    be written.  Not counted in LAUNCHES_BF16."""
+    out = torch.full((out_rows, x.shape[1]), float("nan"), dtype=torch.bfloat16,
+                     device="cuda")
+    sm._launch(x, blk_src, blk_local, blk_weight, blk_rowptr, block_rows, out)
+    return out
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 100, 256, 300])
-@pytest.mark.parametrize("kind", ["symmetrized", "skewed-512x512"])
+@pytest.mark.parametrize("d", [8, 64, 72, 100, 256, 300, 520])
+@pytest.mark.parametrize("kind", ["symmetrized", "skewed-512x512", "small", "hub-only"])
 def test_scatter_matmul_bf16_matches_plain_version(cuda_graphs, kind, d):
     """K1 in bf16 against its plain version (f32 sums of bf16-rounded
     weights times bf16 x, one rounding a row): within one bf16 ulp beyond
-    the f32 sums' tolerance; rows no edge reaches exactly zero; a second
-    launch gives the same bits; only the bf16 count moves.  d = 100 and 300
-    take the scalar column path (d % 8 != 0)."""
+    the f32 sums' tolerance; rows no edge reaches exactly zero (the output
+    starts as NaN: the kernel writes every row); a second launch gives the
+    same bits; only the bf16 count moves.  d across a lane's 16-byte load
+    (8, 72), past one 256-column slice (300, 520), and 100 and 300 on the
+    scalar column path (d % 8 != 0).  The skewed graph's hub row crosses
+    many runs; "small" is a launch far too small to fill the card;
+    "hub-only" takes the skewed graph's row-block 0 alone (a row pointer
+    that empties the rest, so nearly all of out is rows no slot reaches)."""
     if kind == "symmetrized":
         n, graphs = cuda_graphs
         x = torch.randn(n, d, device="cuda")
     else:
-        n, graphs = _skewed_graphs((512, 512))
+        n, graphs = _skewed_graphs((512, 512)) if kind != "small" else _small_graph()
         x = torch.randn(n + 37, d, device="cuda")
     x = x.to(torch.bfloat16)
     for g in graphs:
-        args = (g.blk_src, g.blk_local, g.blk_weight, g.blk_rowptr, g.block_rows, n)
+        ptr = g.blk_rowptr
+        if kind == "hub-only":
+            ptr = ptr.clone()
+            ptr[2:] = ptr[1]
+        args = (g.blk_src, g.blk_local, g.blk_weight, ptr, g.block_rows, n)
         before = (sm.LAUNCHES, sm.LAUNCHES_BF16)
         got = sm.scatter_matmul(x, *args)
         again = sm.scatter_matmul(x, *args)
+        into_nan = _bf16_into_nan(x, *args)
         torch.cuda.synchronize()
         assert (sm.LAUNCHES, sm.LAUNCHES_BF16) == (before[0], before[1] + 2)
         assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+        assert torch.equal(got, into_nan)
         want = sm.scatter_matmul_reference(x, *args)
         abs_sum = sm.scatter_matmul_reference(
             x.float().abs(), g.blk_src, g.blk_local, g.blk_weight.abs(), *args[3:]
         )
         assert _within_bf16_tolerance(got, want, abs_sum)
         assert not got[(g.in_degrees == 0).nonzero()[:, 0]].any()
+        if kind == "hub-only":
+            assert not got[g.block_rows:].any()
 
 
 @pytest.mark.cuda
@@ -384,9 +418,10 @@ def test_flash_backward_compacted_lists(store, case, t, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("store", [torch.int8, torch.float32])
 @pytest.mark.parametrize("t,d", [(256, 256), (256, 520), (32, 100)])
-def test_flash_forward_compacted_lists(store, t, d):
+def test_flash_forward_compacted_lists(store, t, d, dtype):
     """K3's compacted lists, with chip_smoke's checks (y, m, den against the
     plain version, rows without an edge exactly (0, 0, -inf), a second
     launch bitwise equal): row tile 4's only tile takes its edges from the
@@ -395,7 +430,8 @@ def test_flash_forward_compacted_lists(store, t, d):
     zero, but each edge counts in den); row 5 of row tile 1 is full in all
     three of its tiles (at T = 256 its list overflows and drains twice);
     row tile 2 holds no tile; d = 520 takes three 256-column slices, each
-    of which must give the same m and den."""
+    of which must give the same m and den.  In bf16 (q, k, v, g; the bf16
+    entries, K3's packed kernel where d % 8 == 0) the same."""
     _need_cuda()
     import chip_smoke
 
@@ -414,14 +450,16 @@ def test_flash_forward_compacted_lists(store, t, d):
     else:
         vals = mask * torch.randn(mask.shape, device="cuda", generator=gen)
     rows = n_r * t - 3
-    q, k, v, g = (torch.randn(rows, d, device="cuda", generator=gen) for _ in range(4))
+    q, k, v, g = (torch.randn(rows, d, device="cuda", generator=gen).to(dtype)
+                  for _ in range(4))
     fwd_set, bwd_set = _tile_sets(trow, tcol, vals, n_r)
-    before = dict(ft.LAUNCHES)
+    counts = ft.LAUNCHES_BF16 if dtype == torch.bfloat16 else ft.LAUNCHES
+    before = dict(counts)
     chip_smoke.check_flash_kernels(fwd_set, bwd_set, q, k, v, g, rows)
     num, ml = ft.flash_tiles_fwd(*fwd_set, q, k, v, 1.0 / d ** 0.5)
     torch.cuda.synchronize()
-    assert ft.LAUNCHES == {"fwd": before["fwd"] + 3, "dq": before["dq"] + 2,
-                           "dkv": before["dkv"] + 2}
+    assert counts == {"fwd": before["fwd"] + 3, "dq": before["dq"] + 2,
+                      "dkv": before["dkv"] + 2}
     count = mask[past].sum(1).float()
     has = count > 0
     block = slice(4 * t, 5 * t)
@@ -432,11 +470,14 @@ def test_flash_forward_compacted_lists(store, t, d):
     assert torch.isneginf(ml[2 * t: 3 * t, 0]).all() and not ml[2 * t: 3 * t, 1].any()
 
 
-def _flash_operand(store, t, d, gen, n_r=7, nt=13):
+def _flash_operand(store, t, d, gen, n_r=7, nt=13, short=False):
     trow = torch.sort(torch.tensor([0, 1, 3, 4, 6], device="cuda")[
         torch.randint(0, 5, (nt,), device="cuda", generator=gen)]).values.int()
     tcol = torch.randint(0, n_r, (nt,), device="cuda", generator=gen).int()
     mask = torch.rand(nt, t, t, device="cuda", generator=gen) < 0.1
+    if short:  # row tile 3's rows hold 0-3 entries each, beside longer rows
+        mask[trow == 3] = torch.rand(mask[trow == 3].shape, device="cuda",
+                                     generator=gen) < 1.5 / t
     mask[trow == 1, 5, :] = True  # a full row: K3's and K4's lists drain
     if store is torch.int8:
         vals = (mask * torch.randint(1, 3, (nt, t, t), device="cuda", generator=gen)).to(store)
@@ -447,22 +488,27 @@ def _flash_operand(store, t, d, gen, n_r=7, nt=13):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("store", [torch.int8, torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("t,d", [(32, 24), (64, 100), (256, 256), (16, 300), (32, 520)])
-def test_flash_tiles_bf16_match_plain_versions(store, t, d):
+@pytest.mark.parametrize("t,d,short", [(32, 24, False), (64, 100, False), (256, 256, False),
+                                       (16, 300, False), (32, 520, False), (64, 256, True),
+                                       (256, 256, True), (256, 520, True), (16, 72, True)])
+def test_flash_tiles_bf16_match_plain_versions(store, t, d, short):
     """K3, K4, K5's bf16 entry points (bf16 q, k, v, g; f32 outputs and
     stats) against their bf16 plain versions with chip_smoke's checks: the
     f32 sums' tolerance plus 2**-7 of the sum of the terms' magnitudes (a
     weight rounded to bf16 before its product may land one ulp apart), m
     and den as in f32, a second launch of each bitwise equal; only the bf16
-    counts move.  d = 24, 256 and 520 take the 16-byte column path (8 bf16
-    a load), 100 and 300 the scalar one; 300 and 520 more than one
-    256-column slice; row tiles 2 and 5 uncovered, the last ragged."""
+    counts move.  d = 24, 72, 256 and 520 take the 16-byte column path (8
+    bf16 a load; K3's packed kernel), 100 and 300 the scalar one; 300 and
+    520 more than one 256-column slice; row tiles 2 and 5 uncovered, the
+    last ragged; row 5 of row tile 1 full (several chunks, and at T = 256
+    a drain of the list mid-row); with ``short`` row tile 3's rows hold
+    0-3 entries each, packed into the lanes beside the longer rows."""
     _need_cuda()
     import chip_smoke
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     n_r = 7
-    trow, tcol, vals = _flash_operand(store, t, d, gen, n_r)
+    trow, tcol, vals = _flash_operand(store, t, d, gen, n_r, short=short)
     rows = n_r * t - 3
     q, k, v, g = (torch.randn(rows, d, device="cuda", generator=gen).to(torch.bfloat16)
                   for _ in range(4))
@@ -474,7 +520,7 @@ def test_flash_tiles_bf16_match_plain_versions(store, t, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t,d", [(32, 24), (64, 100), (256, 256), (32, 520)])
+@pytest.mark.parametrize("t,d", [(32, 24), (64, 100), (256, 256), (32, 520), (256, 520)])
 def test_flash_tiles_split_counts(dtype, t, d):
     """K3, K4, K5 (f32 on int8 tiles; bf16 on bf16 tiles) as the shards of
     a 3-shard tiled partition run them: own rows 2 t a shard, gathered rows
@@ -527,7 +573,7 @@ def test_scatter_matmul_takes_exact_zero_weights_mid_row(dtype):
     runs) and whole runs of it, all of rows 7..9, and the first and last
     slot of every run.  A skipped live slot adds 0 either way; the rows,
     runs and carries must come out as the plain version's, rows with only
-    zero weights exactly 0."""
+    zero weights exactly 0 (in bf16 the output starts as NaN)."""
     _need_cuda()
     n, (g,) = _skewed_graphs((512, 512))
     w = g.blk_weight.clone()
@@ -548,6 +594,8 @@ def test_scatter_matmul_takes_exact_zero_weights_mid_row(dtype):
     again = sm.scatter_matmul(x, *args)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
+    if dtype is torch.bfloat16:
+        assert torch.equal(got, _bf16_into_nan(x, *args))
     want = sm.scatter_matmul_reference(x, *args)
     abs_sum = sm.scatter_matmul_reference(x.float().abs(), g.blk_src, g.blk_local, w.abs(),
                                           *args[3:])
