@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Time variants of the flash kernels K3 (forward), K4 (dq) and K5 (dk/dv)
-on one NVIDIA GPU, at the collab SBM shape ``chip_smoke.py`` trains on.
+on one NVIDIA GPU, at the collab SBM shape ``chip_smoke.py`` trains on and
+on shard 0 of its 4-shard tiled partition.
 
-    python3 chip_sweep_flash.py [--seed 0] [--dtype bfloat16] [--variants a,b]
-                                [--store bfloat16]
+    python3 chip_sweep_flash.py [--seed 0] [--dtype float32,bfloat16]
+                                [--store int8,bfloat16] [--shapes SBM,shard]
+                                [--variants a,b]
                                 [--baseline OTHER/flash_tiles.cu]
                                 [--source OTHER/flash_tiles.cu]
 
@@ -11,25 +13,34 @@ Each variant is ``plnlp_tpu_torch/csrc/flash_tiles.cu`` with some of its
 compile-time knobs replaced (rows a warp owns, list entries in flight,
 blocks an SM), a function of it replaced by another design, or lines of it
 edited (``EDITS``), built with the port's ``nvcc`` flags into
-``build/sweep_flash/`` and loaded with ctypes.  A variant that changes no
-sum's order must give the same bits as the source as it stands; one that
-does (``check`` "plain": K3 in one sweep, rescaling whenever the running
-max grows) is held to the plain version with ``chip_smoke.py``'s checks of
-K3; one that computes only a part of K3 to split its time (``check``
-"time": the list scan alone, the scores without the v rows, the v rows
-without the scores) is timed and not checked.  Prints the compiler's
-register and spill report of each variant, then each variant's K3, K4 and
-K5 times (CUDA events; median of 5 runs of 10 calls), the source's own
-first and again last, and the card's name and power limit.
-``--dtype bfloat16`` times the bf16 entry points on bf16 features instead;
-``--store bfloat16`` the same tiles stored in bf16 in place of int8;
+``build/sweep_flash/``, one nvcc each, all started together, and loaded
+with ctypes.  A variant that changes no sum's order must give the same
+bits as the source as it stands; one that does (``check`` "plain": K3 in
+one sweep, rescaling whenever the running max grows) is held to the plain
+version with ``chip_smoke.py``'s checks of K3; one that computes only a
+part of a kernel to split its time (``check`` "time"; ``PARTS`` names the
+kernels it splits, K3 by default) is timed there and not checked: the
+list scan alone, the scan with the gathers and no math, the scan with the
+math on rows in registers and no gather (K4 and K5 through ``drain_bwd``,
+K5-bf16 through its own drain), K3's scores or v rows alone.  Prints the
+compiler's register and spill report of each variant, then each variant's
+K3, K4 and K5 times (CUDA events; median of 5 runs of 10 calls) on each
+shape, feature type and tile store, the source's own first and again
+last, and the card's name and power limit.  Shapes: ``SBM`` (2,658 int8
+tiles, T = 256, d = 256, every array at the padded-carry n_pad rows) and
+``shard`` (shard 0 of phase 31c's partition at split row counts: the own
+arrays at rows_per_shard rows, the gathered ones at 4 x rows_per_shard,
+as phase 31d launches them); the stats come from the plain forward.
+``--dtype`` names the feature types (bf16 times the bf16 entry points);
+``--store bfloat16`` the same tiles stored in bf16 in place of int8.
 ``--variants`` runs only the named ones.  ``--baseline`` adds another
 ``flash_tiles.cu`` (an earlier commit's, whose entries may lack the
-gathered-row count) as the variant ``baseline``, run first and again last
-around the source: it must give the source's bits, so the pair is an A/B
-of two commits in one run.  ``--source`` takes the variants from another
-``flash_tiles.cu`` (an earlier commit's, to split its time) in place of
-the repository's.  Imports nothing of JAX or of the JAX package.
+gathered-row count: then only the SBM shape runs) as the variant
+``baseline``, run first and again last around the source: it must give
+the source's bits, so the pair is an A/B of two commits in one run.
+``--source`` takes the variants from another ``flash_tiles.cu`` (an
+earlier commit's, to split its time) in place of the repository's.
+Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -193,6 +204,172 @@ PK_PREFETCH = [("  const int crow_lane = scored ? jrow : -1;\n",
     }
   }
 """)]
+# The parts of drain_bwd (K4 and K5 in f32, K4 in bf16, and K5 in bf16
+# before its own drain; time an earlier commit's with --source): the list
+# scan alone (each drain reads its last entry, so the lists are built); the
+# scan, the list and the gathers of the two rows and the stats with no dot
+# product, butterfly or expf (the registers take the rows as they come);
+# the scan, the list and the math on the warp's own rows in registers in
+# place of the gathered ones (no gather; each entry's terms depend on its
+# row, so nothing is hoisted out of the loop)
+SCAN_ONLY_BWD = """template <typename F, bool VEC, bool WIDE, bool DKV>
+__device__ __forceinline__ void drain_bwd(const int* lst, int n, BwdRow<F>& w,
+                                          const F* __restrict__ gat_a,
+                                          const F* __restrict__ gat_b,
+                                          const float* __restrict__ stats, int c0, int lane,
+                                          int d, float scale) {
+  __syncwarp();
+  if (n) w.acc_a[0] += (float)lst[n - 1];
+  __syncwarp();
+}
+"""
+NO_MATH_BWD = """template <typename F, bool VEC, bool WIDE, bool DKV>
+__device__ __forceinline__ void drain_bwd(const int* lst, int n, BwdRow<F>& w,
+                                          const F* __restrict__ gat_a,
+                                          const F* __restrict__ gat_b,
+                                          const float* __restrict__ stats, int c0, int lane,
+                                          int d, float scale) {
+  __syncwarp();
+  for (int b = 0; b < n; b += kUnroll) {
+    float xa[kUnroll][8], xb[kUnroll][8], st[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const bool live = b + u < n;  // warp-uniform
+      const int64_t row = live ? lst[b + u] : 0;
+      st[u] = 0.f;
+      if (DKV && live)
+        st[u] = __ldg(stats + row * 3) + __ldg(stats + row * 3 + 1) + __ldg(stats + row * 3 + 2);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) xa[u][c] = xb[u][c] = 0.f;
+      if (live) {
+        load_cols<VEC>(gat_a + row * d, c0, lane, d, xa[u]);
+        load_cols<VEC>(gat_b + row * d, c0, lane, d, xb[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (b + u >= n) break;  // warp-uniform
+      w.acc_a[0] += st[u];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        w.acc_a[c] += xa[u][c];
+        w.acc_b[c] += xb[u][c];
+      }
+    }
+  }
+  __syncwarp();
+}
+"""
+NO_GATHER_BWD = """template <typename F, bool VEC, bool WIDE, bool DKV>
+__device__ __forceinline__ void drain_bwd(const int* lst, int n, BwdRow<F>& w,
+                                          const F* __restrict__ gat_a,
+                                          const F* __restrict__ gat_b,
+                                          const float* __restrict__ stats, int c0, int lane,
+                                          int d, float scale) {
+  __syncwarp();
+  for (int b = 0; b < n; b += kUnroll) {
+    float s[kUnroll], dav[kUnroll], r[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      r[u] = (float)(b + u < n ? lst[b + u] : 0) * 1e-30f;
+      s[u] = dot8(w.oa, w.oa, r[u]);
+      dav[u] = dot8(w.ob, w.ob, r[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      s[u] = warp_sum(s[u]);
+      dav[u] = warp_sum(dav[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (b + u >= n) break;  // warp-uniform
+      const float a = expf(s[u] * scale - (w.m + r[u])) / (w.den + r[u]);
+      const float ds = round_to<F>(a * (dav[u] - w.delta) * scale);
+      const float ar = round_to<F>(a);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        w.acc_a[c] = fmaf(ds, w.oa[c], w.acc_a[c]);
+        if (DKV) w.acc_b[c] = fmaf(ar, w.ob[c], w.acc_b[c]);
+      }
+    }
+  }
+  __syncwarp();
+}
+"""
+# The parts of K5-bf16's own drain (drain_dkv_bf): the list scan alone;
+# the scan, the list, the stats and the gathers of the two rows in flight
+# as the drain issues them, with no dot product, butterfly or expf; the
+# scan, the list and the math on the warp's own rows in place of the
+# gathered ones (no gather and no stats load)
+DKV_SIG = """\
+__device__ __forceinline__ void drain_dkv_bf(const int* lst, int n, DkvRowBf& w,
+                                             const bf16* __restrict__ q,
+                                             const bf16* __restrict__ g,
+                                             const float* __restrict__ stats, int lane, int d,
+                                             float scale) {
+"""
+DKV_SCAN_ONLY = DKV_SIG + """  __syncwarp();
+  if (n) w.dk[0] += (float)lst[n - 1];
+  __syncwarp();
+}
+"""
+DKV_NO_MATH = DKV_SIG + """  __syncwarp();
+  const int col = 8 * lane;
+  const bool on = col < d;
+  float m_l, den_l, del_l;
+  load_stats_bf(lst, lane, n, stats, m_l, den_l, del_l);
+  for (int b = 0; b < n; b += kUnrollDkvBf) {
+    uint4 qa[kUnrollDkvBf], ga[kUnrollDkvBf];
+    issue_dkv_bf(lst, b, n, q, g, col, on, d, qa, ga);
+    if (b && (b & 31) == 0) load_stats_bf(lst, b + lane, n, stats, m_l, den_l, del_l);
+#pragma unroll
+    for (int u = 0; u < kUnrollDkvBf; ++u) {
+      const int e = b + u;
+      const float st = __shfl_sync(kFull, m_l + den_l + del_l, e & 31);
+      if (e >= n) break;  // warp-uniform
+      float xq[8], xg[8];
+      unpack8(qa[u], xq);
+      unpack8(ga[u], xg);
+      w.dk[0] += st;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        w.dk[c] += xq[c];
+        w.dv[c] += xg[c];
+      }
+    }
+  }
+  __syncwarp();
+}
+"""
+DKV_NO_GATHER = DKV_SIG + """  __syncwarp();
+  float ok[8], ov[8];
+  unpack8(w.k, ok);
+  unpack8(w.v, ov);
+  for (int b = 0; b < n; b += kUnrollDkvBf) {
+    float x[2 * kUnrollDkvBf], r[kUnrollDkvBf];
+#pragma unroll
+    for (int u = 0; u < kUnrollDkvBf; ++u) {
+      r[u] = (float)(b + u < n ? lst[b + u] : 0) * 1e-30f;
+      x[2 * u] = dot8(ok, ok, r[u]);
+      x[2 * u + 1] = dot8(ov, ov, r[u]);
+    }
+    warp_sums(x, lane);
+#pragma unroll
+    for (int u = 0; u < kUnrollDkvBf; ++u) {
+      if (b + u >= n) break;  // warp-uniform
+      const float a = expf(x[2 * u] * scale - r[u]) / (1.f + r[u]);
+      const float ds = round_to<bf16>(a * (x[2 * u + 1] - r[u]) * scale);
+      const float ar = round_to<bf16>(a);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        w.dk[c] = fmaf(ds, ok[c], w.dk[c]);
+        w.dv[c] = fmaf(ar, ov[c], w.dv[c]);
+      }
+    }
+  }
+  __syncwarp();
+}
+"""
 LANE_PER_ENTRY = [("    if constexpr (sizeof(F) == 2 && VEC) {", "    if constexpr (false) {")]
 EDITS = {"pk-scan-only": PK_SCAN_ONLY, "pk-no-v": PK_NO_V, "pk-no-scores": PK_NO_SCORES,
          "pk-prefetch": PK_PREFETCH, "lpe": LANE_PER_ENTRY}
@@ -201,8 +378,8 @@ EDITS = {"pk-scan-only": PK_SCAN_ONLY, "pk-no-v": PK_NO_V, "pk-no-scores": PK_NO
 # constexpr knobs and functions of flash_tiles.cu (and the line edits of
 # EDITS), where check is "bits" (the source's bits), "plain" (K3 within its
 # checks against the plain version: the variant changes a sum's order) or
-# "time" (a part of K3, timed alone); the source as it stands comes first
-# and again last
+# "time" (a part of the kernels PARTS names, timed alone; the others keep
+# the source's bits); the source as it stands comes first and again last
 VARIANTS = [
     ("source", {}, {}, "bits"),
     ("pk-scan-only", {}, {}, "time"),
@@ -219,6 +396,19 @@ VARIANTS = [
     ("pk-unroll4-blocks6", {"kUnrollPk": 4, "kMinBlocksPk": 6}, {}, "bits"),
     ("pk-group1", {"kGroupPk": 1}, {}, "bits"),
     ("pk-warps8-blocks3", {"kWarpsPk": 8, "kMinBlocksPk": 3}, {}, "bits"),
+    ("dkv-scan-only", {}, {"drain_dkv_bf": DKV_SCAN_ONLY}, "time"),
+    ("dkv-no-math", {}, {"drain_dkv_bf": DKV_NO_MATH}, "time"),
+    ("dkv-no-gather", {}, {"drain_dkv_bf": DKV_NO_GATHER}, "time"),
+    ("dkv-u2", {"kUnrollDkvBf": 2}, {}, "bits"),
+    ("dkv-u8", {"kUnrollDkvBf": 8}, {}, "bits"),
+    ("dkv-group1", {"kGroupDkvBf": 1}, {}, "bits"),
+    ("dkv-rows2", {"kRowsDkvBf": 2}, {}, "bits"),
+    ("dkv-rows8", {"kRowsDkvBf": 8}, {}, "bits"),
+    ("dkv-blocks3", {"kMinBlocksDkvBf": 3}, {}, "bits"),
+    ("dkv-u2-blocks3", {"kUnrollDkvBf": 2, "kMinBlocksDkvBf": 3}, {}, "bits"),
+    ("bwd-scan-only", {}, {"drain_bwd": SCAN_ONLY_BWD}, "time"),
+    ("bwd-no-math", {}, {"drain_bwd": NO_MATH_BWD}, "time"),
+    ("bwd-no-gather", {}, {"drain_bwd": NO_GATHER_BWD}, "time"),
     ("fwd-scan-only", {}, {"drain_fwd": SCAN_ONLY_FWD}, "time"),
     ("fwd-scores-only", {}, {"drain_fwd": SCORES_ONLY_FWD}, "time"),
     ("fwd-v-only", {}, {"drain_fwd": V_ONLY_FWD}, "time"),
@@ -237,6 +427,10 @@ VARIANTS = [
     ("group4", {"kGroup": 4}, {}, "bits"),
 ]
 KINDS = ("fwd", "dq", "dkv")
+# the kernels a "time" variant computes a part of (the rest are checked)
+PARTS = {"dkv-scan-only": ("dkv",), "dkv-no-math": ("dkv",), "dkv-no-gather": ("dkv",),
+         "bwd-scan-only": ("dq", "dkv"), "bwd-no-math": ("dq", "dkv"),
+         "bwd-no-gather": ("dq", "dkv")}
 LABELS = {"fwd": "K3", "dq": "K4", "dkv": "K5"}
 
 
@@ -250,8 +444,9 @@ def path_report(report: str) -> str:
             fwd = re.search(r"flash_fwd_kernelIa(f|13__nv_bfloat16)Lb1EE", line)
             pk = re.search(r"flash_fwd_packed_kernelIaEE", line)
             bwd = re.search(r"flash_bwd_kernelIa(f|13__nv_bfloat16)Lb1ELb0ELb([01])EE", line)
+            dkv = re.search(r"flash_dkv_bf16_kernelIaEE", line)
             dt = lambda m: "" if m.group(1) == "f" else "-bf16"  # noqa: E731
-            kind = (f"K3{dt(fwd)}" if fwd else "K3-bf16" if pk
+            kind = (f"K3{dt(fwd)}" if fwd else "K3-bf16" if pk else "K5-bf16" if dkv
                     else f"{'K5' if bwd.group(2) == '1' else 'K4'}{dt(bwd)}" if bwd else None)
         elif kind and "spill stores" in line:
             sp = re.findall(r"(\d+) bytes spill", line)
@@ -328,16 +523,60 @@ def build_variants(dev_dir, variants, baseline=None, src=None):
     return build_sources(dev_dir, "flash_tiles", texts)
 
 
+def shard_tiles(data, dev):
+    """Shard 0 of phase 31c's 4-shard tiled partition of the SBM (labelprop
+    over the relabeled ids with the identity order, T = 256, min_fill = 96,
+    as the CLI builds it): (rows_per_shard, its row-sorted tile set, its
+    transposed one), each as {"vals", "row", "col", "rowptr"}.  Its own
+    rows are slots [0, rows_per_shard) of the gathered buffer of 4 x
+    rows_per_shard rows."""
+    import numpy as np
+
+    import chip_smoke
+    from plnlp_tpu_torch.parallel.graph_parallel import GraphParallel
+    from plnlp_tpu_torch.parallel.mesh import Mesh
+    from plnlp_tpu_torch.parallel.partition import partition_graph
+
+    n = data["hg"].num_nodes
+    relabel = np.empty(n, np.int64)
+    relabel[data["est"]["order"]] = np.arange(n)
+    pg = partition_graph(*(relabel[e] for e in data["edges"]), None, num_nodes=n,
+                         num_shards=4, block=chip_smoke.BLOCK, reorder="labelprop",
+                         tile=chip_smoke.TILE, min_fill=chip_smoke.MIN_FILL,
+                         order=np.arange(n, dtype=np.int64))
+    sh = GraphParallel.place(pg, Mesh(1, 4, rank=0, device=dev))
+    return pg.rows_per_shard, sh.tiles, sh.tiles_t
+
+
+def card_name() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
+    ap.add_argument("--dtype", default="float32",
+                    help="comma-separated feature types: float32, bfloat16")
     ap.add_argument("--variants", default="", help="comma-separated names (default: all)")
     ap.add_argument("--baseline", default="", help="another flash_tiles.cu to A/B against")
     ap.add_argument("--source", default="", help="another flash_tiles.cu to take variants of")
-    ap.add_argument("--store", choices=("int8", "bfloat16"), default="int8",
-                    help="the tile store (the SBM's int8 tiles, or the same tiles in bf16)")
+    ap.add_argument("--store", default="int8",
+                    help="comma-separated tile stores: int8 (the SBM's), bfloat16 (the same "
+                         "tiles in bf16)")
+    ap.add_argument("--shapes", default="SBM,shard",
+                    help="comma-separated: SBM (the single operand), shard (shard 0 of the "
+                         "4-shard tiled partition at split row counts)")
     args = ap.parse_args()
+    dtypes = args.dtype.split(",")
+    stores = args.store.split(",")
+    shape_names = args.shapes.split(",")
+    if (not set(dtypes) <= {"float32", "bfloat16"} or not set(stores) <= {"int8", "bfloat16"}
+            or not set(shape_names) <= {"SBM", "shard"}):
+        ap.error("--dtype, --store or --shapes names an unknown value")
 
     import torch
 
@@ -349,10 +588,7 @@ def main() -> int:
     from plnlp_tpu_torch.ops import flash_tiles as ft
 
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    card = card_name()
     variants = [v for v in VARIANTS if v[0] == "source"
                 or not args.variants or v[0] in args.variants.split(",")]
     baseline = open(args.baseline).read() if args.baseline else None
@@ -364,28 +600,47 @@ def main() -> int:
     data = chip_smoke.hybrid_data(chip_smoke.N_NODES, chip_smoke.N_EDGES,
                                   chip_smoke.N_COMMUNITIES, args.seed, dev)
     hg = data["hg"]
-    t = chip_smoke.TILE
-    n_r = hg.tile_rowptr.shape[0] - 1
-    n_pad = n_r * t
+    t, width = chip_smoke.TILE, chip_smoke.WIDTH
+    scale = 1.0 / math.sqrt(width)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    bf16 = args.dtype == "bfloat16"
-    q, k, v, g = (torch.randn(n_pad, chip_smoke.WIDTH, device=dev, generator=gen
-                              ).to(getattr(torch, args.dtype)) for _ in range(4))
-    scale = 1.0 / math.sqrt(chip_smoke.WIDTH)
-    store = getattr(torch, args.store)
-    vals, vals_t = hg.tile_vals.to(store), hg.tile_vals_t.to(store)
-    fwd_set = (vals, hg.tile_row, hg.tile_col, hg.tile_rowptr)
-    num_r, ml_r = ft.flash_tiles_fwd_reference(*fwd_set[:3], q, k, v, n_r, scale)
-    num_a, _ = ft.flash_tiles_fwd_reference(*fwd_set[:3], q, k, v.abs(), n_r, scale)
-    m = torch.where(torch.isfinite(ml_r[:, 0]), ml_r[:, 0], 0.0)
-    den = ml_r[:, 1].clamp(min=torch.finfo(torch.float32).tiny)
-    stats = torch.stack([m, den, (g.float() * num_r / den[:, None]).sum(-1)], 1).contiguous()
-    sets = {"fwd": (vals, hg.tile_col, hg.tile_rowptr),
-            "dq": (vals, hg.tile_col, hg.tile_rowptr),
-            "dkv": (vals_t, hg.tile_col_t, hg.tile_rowptr_t)}
+    # each shape: (rows, rows_g, fwd set, bwd set, stats of the rows_g rows)
+    shapes = {}
+    if "SBM" in shape_names:
+        n_pad = (hg.tile_rowptr.shape[0] - 1) * t
+        shapes["SBM"] = (n_pad, n_pad, (hg.tile_vals, hg.tile_col, hg.tile_rowptr),
+                         (hg.tile_vals_t, hg.tile_col_t, hg.tile_rowptr_t))
+    if "shard" in shape_names:
+        rps, tiles, tiles_t = shard_tiles(data, dev)
+        shapes["shard"] = (rps, 4 * rps, (tiles["vals"], tiles["col"], tiles["rowptr"]),
+                           (tiles_t["vals"], tiles_t["col"], tiles_t["rowptr"]))
+    # the features at the gathered rows (the own rows are the first `rows`),
+    # and the stats from the plain forward over each shape's own rows (K5's
+    # stats of the gathered rows: the own rows' beside rows of (0, 1, 0)
+    # stats for the rest of the buffer, whose rows no launch here owns)
+    inputs = {}
+    for sname, (rows, rows_g, fwd, bwd) in shapes.items():
+        n_r = fwd[2].shape[0] - 1
+        base = [torch.randn(rows_g, width, device=dev, generator=gen) for _ in range(4)]
+        vals_r = fwd[0]
+        # the plain forward takes (vals, tile_row, tile_col): tile_row from the
+        # row pointer
+        tile_row = torch.repeat_interleave(torch.arange(n_r, device=dev, dtype=torch.int32),
+                                           fwd[2].diff().long())
+        for dt in dtypes:
+            q, k, v, g = (a.to(getattr(torch, dt)) for a in base)
+            num_r, ml_r = ft.flash_tiles_fwd_reference(vals_r, tile_row, fwd[1], q[:rows], k, v,
+                                                       n_r, scale)
+            num_a, _ = ft.flash_tiles_fwd_reference(vals_r, tile_row, fwd[1], q[:rows], k,
+                                                    v.abs(), n_r, scale)
+            m = torch.where(torch.isfinite(ml_r[:, 0]), ml_r[:, 0], 0.0)
+            den = ml_r[:, 1].clamp(min=torch.finfo(torch.float32).tiny)
+            st = torch.stack([m, den, (g[:rows].float() * num_r / den[:, None]).sum(-1)], 1)
+            stats = torch.cat([st, st.new_tensor([0.0, 1.0, 0.0]).expand(rows_g - rows, 3)])
+            inputs[(sname, dt)] = (q, k, v, g, stats.contiguous(), num_r, ml_r, num_a)
 
-    def caller(name, kind):
+    def caller(name, kind, sname, dt, store):
         lib = libs[name][0]
+        bf16 = dt == "bfloat16"
         fn = getattr(lib, f"plnlp_flash_tiles_{kind}" + ("_bf16" if bf16 else ""))
         # a baseline from before the gathered-row count (rows_g, the fourth
         # argument from the end) takes one count
@@ -393,55 +648,69 @@ def main() -> int:
         types = ft._ARGTYPES[kind]
         fn.argtypes = types if split else types[:-4] + types[-3:]
         fn.restype = ctypes.c_int
-        vals_k, tc, tp = sets[kind]
+        rows, rows_g, fwd, bwd = shapes[sname]
+        vals_k, tc, tp = fwd if kind != "dkv" else bwd
+        vals_k = vals_k.to(getattr(torch, store))
+        n_r = tp.shape[0] - 1
+        q, k, v, g, stats = inputs[(sname, dt)][:5]
         f32 = dict(dtype=torch.float32, device=dev)
         if kind == "fwd":
-            outs = [torch.empty((n_pad, chip_smoke.WIDTH), **f32), torch.empty((n_pad, 2), **f32)]
+            outs = [torch.empty((rows, width), **f32), torch.empty((rows, 2), **f32)]
             ptrs = [a.data_ptr() for a in (tc, tp, q, k, v, *outs)]
+        elif kind == "dq":
+            outs = [torch.empty((rows, width), **f32)]
+            ptrs = [a.data_ptr() for a in (tc, tp, q, k, v, g, stats, *outs)]
         else:
-            outs = [torch.empty((n_pad, chip_smoke.WIDTH), **f32)
-                    for _ in range(1 if kind == "dq" else 2)]
+            outs = [torch.empty((rows, width), **f32) for _ in range(2)]
             ptrs = [a.data_ptr() for a in (tc, tp, q, k, v, g, stats, *outs)]
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rows = (n_pad, n_pad) if split else (n_pad,)
+        counts = (rows, rows_g) if split else (rows,)
 
         def call():
-            err = fn(vals_k.data_ptr(), ft._VALS_KIND[vals_k.dtype], *ptrs, n_r, t, *rows,
-                     chip_smoke.WIDTH, scale, stream)
+            err = fn(vals_k.data_ptr(), ft._VALS_KIND[vals_k.dtype], *ptrs, n_r, t, *counts,
+                     width, scale, stream)
             _build.check(lib, err, f"flash_tiles_{kind} sweep launch")
             return outs
         return call
 
-    want = {kind: [o.clone() for o in caller("source", kind)()] for kind in KINDS}
+    combos = [(sname, dt, store) for sname in shapes for dt in dtypes for store in stores]
+    if baseline is not None and "int rows_g" not in baseline:
+        combos = [c for c in combos if shapes[c[0]][0] == shapes[c[0]][1]]
+    want = {(kind, *c): [o.clone() for o in caller("source", kind, *c)()]
+            for kind in KINDS for c in combos}
     check = {name: ch for name, _, _, ch in variants}
     check["baseline"] = "bits"
     order = [name for name, *_ in variants] + ["source"]
     if baseline is not None:
         order = ["baseline", *order, "baseline"]
     for name in order:
-        times, notes = [], []
-        for kind in KINDS:
-            call = caller(name, kind)
-            got = call()
-            torch.cuda.synchronize()
-            if check[name] == "time" and kind == "fwd":
-                notes.append("K3 computes a part: timed, not checked")
-            elif check[name] == "bits" or kind != "fwd":
-                chip_smoke.require(all(torch.equal(a, b) for a, b in zip(got, want[kind])),
-                                   f"variant {name}: flash_tiles_{kind} differs from the source")
-            else:
-                ratio, empty_ok, _ = chip_smoke.fwd_errors(
-                    *got, num_r, ml_r, num_a,
-                    chip_smoke.SUM_RTOL + (chip_smoke.BF16_RTOL if bf16 else 0.0))
-                chip_smoke.require(ratio <= 1.0 and empty_ok,
-                                   f"variant {name}: flash_tiles_fwd disagrees with its plain "
-                                   f"version (max err/tol {ratio:.3f})")
-                notes.append(f"K3 max err/tol {ratio:.3f} against the plain version")
-            times.append(chip_smoke.cuda_ms(call, reps=10, runs=5))
-        same = "; ".join(notes) or "same bits as the source"
-        parts = ", ".join(f"{LABELS[kd]} {ms:.4f} ms" for kd, ms in zip(KINDS, times))
-        print(f"[sweep] {name} ({args.dtype}, {args.store} tiles): {parts} ({same}); card {card}",
-              flush=True)
+        for sname, dt, store in combos:
+            times, notes = [], []
+            for kind in KINDS:
+                call = caller(name, kind, sname, dt, store)
+                got = call()
+                torch.cuda.synchronize()
+                if check[name] == "time" and kind in PARTS.get(name, ("fwd",)):
+                    notes.append(f"{LABELS[kind]} computes a part: timed, not checked")
+                elif check[name] != "plain" or kind != "fwd":
+                    chip_smoke.require(all(torch.equal(a, b) for a, b in
+                                           zip(got, want[(kind, sname, dt, store)])),
+                                       f"variant {name}: flash_tiles_{kind} differs from the "
+                                       f"source ({sname}, {dt}, {store} tiles)")
+                else:
+                    num_r, ml_r, num_a = inputs[(sname, dt)][5:]
+                    ratio, empty_ok, _ = chip_smoke.fwd_errors(
+                        *got, num_r, ml_r, num_a,
+                        chip_smoke.SUM_RTOL + (chip_smoke.BF16_RTOL if dt == "bfloat16" else 0.0))
+                    chip_smoke.require(ratio <= 1.0 and empty_ok,
+                                       f"variant {name}: flash_tiles_fwd disagrees with its "
+                                       f"plain version (max err/tol {ratio:.3f})")
+                    notes.append(f"K3 max err/tol {ratio:.3f} against the plain version")
+                times.append(chip_smoke.cuda_ms(call, reps=10, runs=5))
+            same = "; ".join(notes) or "same bits as the source"
+            parts = ", ".join(f"{LABELS[kd]} {ms:.4f} ms" for kd, ms in zip(KINDS, times))
+            print(f"[sweep] {name} ({sname}, {dt}, {store} tiles): {parts} ({same}); "
+                  f"card {card}", flush=True)
     print(card, flush=True)
     return 0
 

@@ -84,11 +84,13 @@
 //      entry's stats, for K5), s = q . k and g . v are lane partials and one
 //      butterfly each, a = exp(s scale - M) / den and ds = a (g.v - delta)
 //      scale, and the registers take ds k_j (K4), or ds q_i and a g_i (K5).
+//      bf16 features with d % 8 == 0 and d <= 256 take K5's own kernel
+//      (below), with the same arithmetic.
 // Zeros of vals are skipped, never multiplied.  A block is 8 warps of 1 row
 // (K3, K4) or 2 (K5), and the row slices of one row tile are neighbours in
 // launch order: few row tiles are in flight at once, so the rows they
 // gather from their column tiles stay in L2.  Registers are capped at 64
-// (K3, K4) and 80 (K5).  d > 256 takes gridDim.z slices of 256 output
+// (K3, K4) and 80 (K5; 128 for K5's bf16 kernel).  d > 256 takes gridDim.z slices of 256 output
 // columns; each slice recomputes the dot products over the full d (K4 and
 // K5 read the warp's own rows in chunks) in the same order, so K3's m and
 // den come out with the same bits in every slice (slice 0 writes them).
@@ -151,6 +153,39 @@
 // (PERF.md).  Measured (the same script and card): 0.745 ms on int8 tiles
 // and 0.794 on bf16 tiles against drain_fwd's 0.883 and 0.895 in the same
 // run, 3.2x the bound; 1 row a warp 0.975, 3 rows 0.741, 4 rows 0.89-1.0.
+//
+// K5 in bf16, redesigned (flash_dkv_bf16_kernel: bf16 features, d % 8 == 0,
+// d <= 256; the wide and the scalar paths keep flash_bwd_kernel).  Split on
+// the H100 (chip_sweep_flash.py, one H100 80GB HBM3 at 700.00 W, the SBM
+// shape, int8 tiles), drain_bwd's K5-bf16 took 0.917 ms: the list scan
+// alone 0.276, the scan and the gathers with no math 0.524, the scan and
+// the math on rows in registers with no gather 0.588.  The parts added up:
+// a warp had one entry in flight, and its gathers, stats, butterflies,
+// expf and divide were one dependent chain.  The bf16 kernel keeps one warp
+// a source row, the lists and each sum's order (the same bits) and changes
+// the rest:
+// - the scan walks the warp's kRowsDkvBf rows' tile rows as one stream of
+//   items, a cursor loading the next kGroupDkvBf items before the scan
+//   tests the current ones, across rows (so the next row's first loads fly
+//   while a row drains), counting rows, tiles and chunks with no division;
+// - k_j and v_j stay packed (16 bytes each a lane) and are unpacked at each
+//   dot product; the q_i and g_i rows of kUnrollDkvBf entries are issued
+//   together and kept raw until their math;
+// - the stats of each 32-entry batch of the list are loaded by one lane an
+//   entry and handed out by shuffle;
+// - a step's 2 kUnrollDkvBf dot products are reduced together (warp_sums:
+//   each keeps warp_sum's tree of additions, in 17 shuffles for 4 entries
+//   where 8 butterflies take 40).
+// It needs ~126 registers, so it runs 2 blocks of 8 warps an SM: at the
+// 80 registers of 3 blocks every version spilled 100-630 bytes and lost.
+// 16 KB of shared memory a block (the lists).  Measured there: 0.757 ms on
+// int8 tiles and 0.759 on bf16 tiles against drain_bwd's 0.915 and 0.928
+// in the same run; the scan alone 0.235, with the gathers and no math
+// 0.505, with the math and no gather 0.540.  Tried and lost,
+// with the same bits: 1 or 2 entries a step, with or without the next
+// step's rows issued before a step's math (0.81-0.96), 8 entries a step
+// (spills, 1.32), 3 blocks an SM (0.85-1.25), 1, 2 or 8 rows a warp
+// (0.88, 0.79, 0.78).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -207,6 +242,13 @@ constexpr int kMinBlocksPk = 7;    // blocks an SM
 constexpr int kRing = 512;         // list entries a warp (a power of two, > 64 + kChunk)
 static_assert(kRowsPk < 128, "a list entry's tag holds its local row in 7 bits");
 constexpr int kWarpBytesPk = kRing * 4 + kRing;
+
+// K5 with bf16 features, 16-byte rows and d <= 256 (flash_dkv_bf16_kernel,
+// below; set by timing on the H100: chip_sweep_flash.py).
+constexpr int kRowsDkvBf = 4;       // source rows a warp, one after another
+constexpr int kGroupDkvBf = 2;      // tile-row items (kChunk columns) loaded a group ahead
+constexpr int kUnrollDkvBf = 4;     // list entries a step (their rows raw until their math)
+constexpr int kMinBlocksDkvBf = 2;  // blocks an SM
 
 enum Kind { kFwd, kDq, kDkv };
 
@@ -1009,6 +1051,283 @@ flash_bwd_kernel(const V* __restrict__ vals, const int* __restrict__ tile_col,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K5 in bf16: the gathered rows kept packed and in flight
+// ---------------------------------------------------------------------------
+
+// A warp's source row while K5-bf16 drains its list: k_j and v_j as loaded
+// (8 bf16 a lane, unpacked at each dot product) and the dk, dv sums.
+struct DkvRowBf {
+  uint4 k, v;
+  float dk[8], dv[8];
+};
+
+// 16 bytes of bf16 at `p` if `on`, else zeros.
+__device__ __forceinline__ uint4 load_raw(const bf16* p, bool on) {
+  return on ? __ldg(reinterpret_cast<const uint4*>(p)) : make_uint4(0u, 0u, 0u, 0u);
+}
+
+// The stats of list entry `e` (its gathered row's M, den, delta), one entry
+// a lane; (0, 1, 0) past the list's n entries.
+__device__ __forceinline__ void load_stats_bf(const int* lst, int e, int n,
+                                              const float* __restrict__ stats, float& m,
+                                              float& den, float& delta) {
+  m = 0.f;
+  den = 1.f;
+  delta = 0.f;
+  if (e < n) {
+    const int64_t row = lst[e];
+    m = __ldg(stats + row * 3);
+    den = __ldg(stats + row * 3 + 1);
+    delta = __ldg(stats + row * 3 + 2);
+  }
+}
+
+// The q_i and g_i rows of list entries [e, e + kUnrollDkvBf), raw; zeros
+// past the list's n entries.
+__device__ __forceinline__ void issue_dkv_bf(const int* lst, int e, int n,
+                                             const bf16* __restrict__ q,
+                                             const bf16* __restrict__ g, int col, bool on,
+                                             int d, uint4 (&qa)[kUnrollDkvBf],
+                                             uint4 (&ga)[kUnrollDkvBf]) {
+#pragma unroll
+  for (int u = 0; u < kUnrollDkvBf; ++u) {
+    const bool live = on && e + u < n;
+    const int64_t row = e + u < n ? lst[e + u] : 0;
+    qa[u] = load_raw(q + row * d + col, live);
+    ga[u] = load_raw(g + row * d + col, live);
+  }
+}
+
+// The sums of x[0 .. kV) over the warp's 32 lanes in every lane, each with
+// the tree of additions warp_sum gives it (so the same bits), in fewer
+// shuffles: at each of the first log2(kV) butterfly steps a lane keeps one
+// half of its sums and sends the other half to its partner, which keeps
+// that half; the last sum left then takes the rest of the butterfly, and
+// each sum is read from a lane that holds it.  kV - 1 + 5 - log2(kV) + kV
+// shuffles in place of warp_sum's 5 kV.
+template <int kV>
+__device__ __forceinline__ void warp_sums(float (&x)[kV], int lane) {
+  static_assert(kV >= 1 && kV <= 32 && (kV & (kV - 1)) == 0, "kV a power of two up to 32");
+  int o = 16;
+#pragma unroll
+  for (int h = kV; h > 1; h >>= 1, o >>= 1) {
+    const bool up = lane & o;
+#pragma unroll
+    for (int i = 0; i < h / 2; ++i) {
+      const float keep = up ? x[h / 2 + i] : x[i];
+      const float send = up ? x[i] : x[h / 2 + i];
+      x[i] = keep + __shfl_xor_sync(kFull, send, o);
+    }
+  }
+#pragma unroll
+  for (; o; o >>= 1) x[0] += __shfl_xor_sync(kFull, x[0], o);
+  const float held = x[0];
+#pragma unroll
+  for (int v = 0; v < kV; ++v) {
+    int src = 0;  // the lane that holds sum v: its bit for each halving step
+#pragma unroll
+    for (int h = kV, bit = 16; h > 1; h >>= 1, bit >>= 1)
+      if (v % h >= h / 2) src += bit;
+    x[v] = __shfl_sync(kFull, held, src);
+  }
+}
+
+// Adds the terms of the list's n entries to the row's sums in list order,
+// as drain_bwd does for K5 (the same lane partials over the same 8
+// columns, the same tree of additions for each dot product, the same expf
+// and divide, the same sums), so the bits are drain_bwd's.  What differs
+// is what is in flight and the work around it: the stats of each 32-entry
+// batch are loaded by one lane an entry at the batch's start and handed
+// out by shuffle; kUnrollDkvBf entries are taken a step, their q and g
+// rows issued together and kept raw until their math; the 2 kUnrollDkvBf
+// dot products of a step are reduced together (warp_sums).
+__device__ __forceinline__ void drain_dkv_bf(const int* lst, int n, DkvRowBf& w,
+                                             const bf16* __restrict__ q,
+                                             const bf16* __restrict__ g,
+                                             const float* __restrict__ stats, int lane, int d,
+                                             float scale) {
+  static_assert(32 % kUnrollDkvBf == 0, "a step's entries lie in one 32-entry batch");
+  __syncwarp();
+  const int col = 8 * lane;
+  const bool on = col < d;
+  float m_l, den_l, del_l;  // the stats of the batch's entry `lane`
+  load_stats_bf(lst, lane, n, stats, m_l, den_l, del_l);
+  for (int b = 0; b < n; b += kUnrollDkvBf) {
+    uint4 qa[kUnrollDkvBf], ga[kUnrollDkvBf];
+    issue_dkv_bf(lst, b, n, q, g, col, on, d, qa, ga);
+    if (b && (b & 31) == 0) load_stats_bf(lst, b + lane, n, stats, m_l, den_l, del_l);
+    float x[2 * kUnrollDkvBf];  // s = q_i . k_j and g_i . v_j of each entry
+    {
+      float ok[8], ov[8];
+      unpack8(w.k, ok);
+      unpack8(w.v, ov);
+#pragma unroll
+      for (int u = 0; u < kUnrollDkvBf; ++u) {
+        float xq[8], xg[8];
+        unpack8(qa[u], xq);
+        unpack8(ga[u], xg);
+        x[2 * u] = dot8(ok, xq, 0.f);
+        x[2 * u + 1] = dot8(ov, xg, 0.f);
+      }
+    }
+    warp_sums(x, lane);
+#pragma unroll
+    for (int u = 0; u < kUnrollDkvBf; ++u) {
+      const int e = b + u;
+      const float m = __shfl_sync(kFull, m_l, e & 31);
+      const float den = __shfl_sync(kFull, den_l, e & 31);
+      const float delta = __shfl_sync(kFull, del_l, e & 31);
+      if (e >= n) break;  // warp-uniform
+      const float a = expf(x[2 * u] * scale - m) / den;
+      const float ds = round_to<bf16>(a * (x[2 * u + 1] - delta) * scale);
+      const float ar = round_to<bf16>(a);
+      float xq[8], xg[8];
+      unpack8(qa[u], xq);
+      unpack8(ga[u], xg);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        w.dk[c] = fmaf(ds, xq[c], w.dk[c]);
+        w.dv[c] = fmaf(ar, xg[c], w.dv[c]);
+      }
+    }
+  }
+  __syncwarp();
+}
+
+// K5 for bf16 q, k, v, g with d % 8 == 0 and d <= 256 (one slice): a warp
+// owns kRowsDkvBf source rows of a row tile, one after another (row lr is
+// r0 + lr kWarps, as flash_bwd_kernel assigns them), and walks their tile
+// rows as one stream of items (kChunk columns of one tile's row), a cursor
+// loading kGroupDkvBf items a group ahead of the one the scan tests,
+// across the rows, so the next row's first items are in flight while a
+// row drains.  The lists (scan_row's, in column order, drained before they
+// overflow) and the sums are flash_bwd_kernel's, so the bits are its.
+template <typename V>
+__global__ void __launch_bounds__(kThreads, kMinBlocksDkvBf)
+flash_dkv_bf16_kernel(const V* __restrict__ vals, const int* __restrict__ tile_col,
+                      const int* __restrict__ tile_rowptr, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ q,
+                      const bf16* __restrict__ g, const float* __restrict__ stats,
+                      float* __restrict__ dk, float* __restrict__ dv, int tile, int rows,
+                      int rows_g, int d, float scale) {
+  __shared__ int lst_all[kWarps][kCap];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int* lst = lst_all[warp];
+  constexpr int kRowsPerBlock = kWarps * kRowsDkvBf;
+  const int n_slices = (tile + kRowsPerBlock - 1) / kRowsPerBlock;
+  const int rt = blockIdx.x / n_slices;
+  const int slice = blockIdx.x - rt * n_slices;
+  const int t_begin = __ldg(tile_rowptr + rt), t_end = __ldg(tile_rowptr + rt + 1);
+  const int r0 = slice * kRowsPerBlock + warp;
+  int n_rows = 0;
+#pragma unroll
+  for (int lr = 0; lr < kRowsDkvBf; ++lr) {
+    const int r = r0 + lr * kWarps;
+    if (r < tile && (int64_t)rt * tile + r < rows) n_rows = lr + 1;
+  }
+  if (n_rows == 0) return;  // warp-uniform
+  const int col = 8 * lane;
+  const bool on = col < d;
+  const int n_chunks = (tile + kChunk - 1) / kChunk;
+
+  DkvRowBf w;
+  const int64_t grow0 = (int64_t)rt * tile + r0;
+  auto start_row = [&](int lr) {
+    const int64_t at = (grow0 + lr * kWarps) * d + col;
+    w.k = load_raw(k + at, on);
+    w.v = load_raw(v + at, on);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) w.dk[c] = w.dv[c] = 0.f;
+  };
+  auto put_row = [&](int lr) {
+    const int64_t grow = grow0 + lr * kWarps;
+    store_cols<true, bf16>(dk + grow * d, 0, lane, d, w.dk);
+    store_cols<true, bf16>(dv + grow * d, 0, lane, d, w.dv);
+  };
+  if (t_end == t_begin) {  // no tile: every row's sums are zero
+    for (int lr = 0; lr < n_rows; ++lr) {
+      start_row(lr);
+      put_row(lr);
+    }
+    return;
+  }
+
+  // the load cursor: row lk, tile ik, chunk ck (lk == n_rows: past the end)
+  int lk = 0, ik = t_begin, ck = 0;
+  const V* vrow = vals + (int64_t)t_begin * tile * tile + (int64_t)r0 * tile + 8 * lane;
+  auto load_item = [&](Vals8<V>& item, int& tc) {
+    tc = -1;
+    if (lk < n_rows) {
+      if (ck * kChunk + 8 * lane < tile) {
+        item.load(vrow + (int64_t)(ik - t_begin) * tile * tile + ck * kChunk);
+        tc = __ldg(tile_col + ik);
+      }
+      if (++ck == n_chunks) {
+        ck = 0;
+        if (++ik == t_end) {
+          ik = t_begin;
+          ++lk;
+          vrow += (int64_t)kWarps * tile;
+        }
+      }
+    }
+  };
+  Vals8<V> cur[kGroupDkvBf], nxt[kGroupDkvBf];
+  int tc_cur[kGroupDkvBf], tc_nxt[kGroupDkvBf];  // the item's tile column, -1 past the tile
+#pragma unroll
+  for (int j = 0; j < kGroupDkvBf; ++j) load_item(cur[j], tc_cur[j]);
+  start_row(0);
+  // the scan's cursor: row lr, chunk ch, tile ir
+  int lr = 0, ch = 0, ir = t_begin;
+  int n = 0;  // list entries
+  while (lr < n_rows) {
+#pragma unroll
+    for (int j = 0; j < kGroupDkvBf; ++j) load_item(nxt[j], tc_nxt[j]);
+#pragma unroll
+    for (int j = 0; j < kGroupDkvBf; ++j) {
+      if (lr == n_rows) break;  // warp-uniform
+      const int xcol = tc_cur[j] * tile + ch * kChunk + 8 * lane;
+      unsigned nz = tc_cur[j] >= 0 ? cur[j].nonzero() : 0u;
+      // sources at or past rows_g: their terms are exactly 0
+      if (xcol + 8 > rows_g) nz &= rows_g > xcol ? (1u << (rows_g - xcol)) - 1u : 0u;
+      const int cnt = __popc(nz);
+      int incl = cnt;  // inclusive prefix sum over lanes
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int t = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += t;
+      }
+      const int total_j = __shfl_sync(kFull, incl, 31);
+      if (n + total_j > kCap) {
+        drain_dkv_bf(lst, n, w, q, g, stats, lane, d, scale);
+        n = 0;
+      }
+      int pos = n + incl - cnt;
+#pragma unroll
+      for (int b = 0; b < 8; ++b)
+        if (nz >> b & 1u) lst[pos++] = xcol + b;
+      n += total_j;
+      if (++ch == n_chunks) {
+        ch = 0;
+        if (++ir == t_end) {  // the row is whole
+          ir = t_begin;
+          drain_dkv_bf(lst, n, w, q, g, stats, lane, d, scale);
+          put_row(lr);
+          n = 0;
+          if (++lr < n_rows) start_row(lr);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kGroupDkvBf; ++j) {
+      cur[j] = nxt[j];
+      tc_cur[j] = tc_nxt[j];
+    }
+  }
+}
+
 // The grid of every kernel: the row slices of each row tile along x, the
 // 256-column output slices along z.
 dim3 grid_of(Kind kind, int nr, int tile, int d) {
@@ -1073,12 +1392,22 @@ struct LaunchBwd {
                     const void* own_b, const void* gat_a, const void* gat_b,
                     const float* stats, float* out_a, float* out_b, int nr, int tile,
                     int rows, int rows_g, int d, float scale, cudaStream_t stream) {
-      flash_bwd_kernel<V, F, VEC, WIDE, DKV>
-          <<<grid_of(DKV ? kDkv : kDq, nr, tile, d), kThreads, 0, stream>>>(
-              static_cast<const V*>(vals), tc, tp, static_cast<const F*>(own_a),
-              static_cast<const F*>(own_b), static_cast<const F*>(gat_a),
-              static_cast<const F*>(gat_b), stats, out_a, out_b, tile, rows, rows_g, d,
-              scale);
+      if constexpr (DKV && sizeof(F) == 2 && VEC && !WIDE) {
+        constexpr int kRowsPerBlock = kWarps * kRowsDkvBf;
+        const dim3 grid(nr * ((tile + kRowsPerBlock - 1) / kRowsPerBlock), 1, 1);
+        flash_dkv_bf16_kernel<V><<<grid, kThreads, 0, stream>>>(
+            static_cast<const V*>(vals), tc, tp, static_cast<const bf16*>(own_a),
+            static_cast<const bf16*>(own_b), static_cast<const bf16*>(gat_a),
+            static_cast<const bf16*>(gat_b), stats, out_a, out_b, tile, rows, rows_g, d,
+            scale);
+      } else {
+        flash_bwd_kernel<V, F, VEC, WIDE, DKV>
+            <<<grid_of(DKV ? kDkv : kDq, nr, tile, d), kThreads, 0, stream>>>(
+                static_cast<const V*>(vals), tc, tp, static_cast<const F*>(own_a),
+                static_cast<const F*>(own_b), static_cast<const F*>(gat_a),
+                static_cast<const F*>(gat_b), stats, out_a, out_b, tile, rows, rows_g, d,
+                scale);
+      }
     }
   };
 };

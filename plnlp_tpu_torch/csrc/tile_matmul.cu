@@ -61,6 +61,36 @@
 // shape are vals 174 MB + x 121 MB + out 121 MB + indices, 0.42 GB or
 // 0.12 ms; the row gather halves to nnz * D * 2 bytes (1.1 GB).  A lane's
 // 8 columns are then one 16-byte load (columns c0 + 8*lane .. +7).
+//
+// bf16 x with 16-byte rows (d % 8 == 0) runs a kernel of its own,
+// tile_matmul_bf16_kernel.  The design above spends most of its bf16 time
+// in the scan, not in the gathers: split on the H100 (chip_sweep_tiles.py,
+// one H100 80GB HBM3 at 700.00 W, the SBM shape, int8 tiles), the scan and
+// the list alone took 0.242 ms of its 0.421, the scan and the list walked
+// with no gather 0.276.  Each group of items waited for its own loads, the
+// next row's scan waited for the row before, and every value was converted
+// to float to be tested.  The bf16 kernel keeps one warp a row and each
+// row's list and sums, so the bits are the design above's (its blocks hold
+// 8 warps of kRowsBf rows), and changes what is in flight and what each
+// item costs:
+// - a warp walks its kRowsBf rows' tile rows as one stream of items (the
+//   row of one tile, kChunk columns); a cursor loads the next kGroupBf
+//   items (vals and tile_col) before the scan tests the current ones,
+//   across rows, so the next row's first loads are in flight while a row
+//   drains; the cursors count rows, tiles and chunks, with no division;
+// - the scan tests the values as loaded (an int8 byte; a bf16 half with its
+//   sign masked off, so -0 is zero; f32 rounded to bf16 first) and converts
+//   only the nonzeros;
+// - the drain keeps kDepthBf x rows in flight, each raw (16 bytes) until
+//   its products, entry e's row issued kDepthBf entries ahead of them.
+// 63 registers of the 64 that 4 blocks of 8 warps an SM allow (the f32
+// tile store's instantiation spills 24 bytes), 32 KB of shared memory a
+// block (the lists).  Measured there: 0.306 ms on int8 tiles and 0.321 on
+// bf16 tiles against 0.417 and 0.436 for the design above in the same run;
+// its scan alone 0.173, with the list walked and no gather 0.218.  Tried
+// and lost, with the same bits: 2 or 4 items a group (spills; 0.30-0.76
+// ms), 5, 6 or 8 x rows in flight (spills; bf16 tiles 0.32-0.58), 2 or 8
+// rows a warp (0.318, 0.315), 3 blocks an SM (0.34).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,6 +106,12 @@ constexpr int kSlice = 256;   // output columns per block: 8 a lane
 constexpr int kGroup = 2;     // vals rows in flight
 constexpr int kUnroll = 2;    // x rows in flight
 constexpr int kCap = 2 * kChunk;  // list entries per warp
+// bf16 x with 16-byte rows (tile_matmul_bf16_kernel; set by timing on the
+// H100: chip_sweep_tiles.py)
+constexpr int kRowsBf = 4;      // rows a warp, one after another
+constexpr int kGroupBf = 1;     // tile-row items loaded a group ahead
+constexpr int kDepthBf = 4;     // x rows in flight
+constexpr int kMinBlocksBf = 4; // blocks an SM
 constexpr unsigned kFull = 0xffffffffu;
 
 typedef __nv_bfloat16 bf16;
@@ -304,6 +340,233 @@ tile_matmul_kernel(const V* __restrict__ vals,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 x with 16-byte rows: the gathers kept raw and in flight
+// ---------------------------------------------------------------------------
+
+// Eight values of a tile row as loaded (int8, bf16 or f32).  nonzero()
+// tests them as the product takes them (vals.astype(bfloat16): f32 values
+// rounded first) without converting int8 or bf16 values, and at(b) converts
+// value b, which the scan calls for the nonzeros alone.
+template <typename V>
+struct Raw8;
+template <>
+struct Raw8<int8_t> {
+  unsigned long long r;
+  __device__ __forceinline__ void load(const int8_t* p) {
+    r = __ldg(reinterpret_cast<const unsigned long long*>(p));
+  }
+  __device__ __forceinline__ unsigned nonzero() const {
+    unsigned nz = 0;
+#pragma unroll
+    for (int b = 0; b < 8; ++b) nz |= (r >> (8 * b) & 0xffu) ? 1u << b : 0u;
+    return nz;
+  }
+  __device__ __forceinline__ float at(int b) const {
+    return static_cast<float>(static_cast<int8_t>(r >> (8 * b)));
+  }
+};
+template <>
+struct Raw8<bf16> {
+  uint4 r;
+  __device__ __forceinline__ void load(const bf16* p) {
+    r = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ unsigned nonzero() const {
+    const unsigned w[4] = {r.x, r.y, r.z, r.w};
+    unsigned nz = 0;
+#pragma unroll
+    for (int b = 0; b < 8; ++b)  // -0 is zero
+      nz |= (w[b / 2] >> (16 * (b & 1)) & 0x7fffu) ? 1u << b : 0u;
+    return nz;
+  }
+  __device__ __forceinline__ float at(int b) const {
+    const unsigned long long h = b < 4 ? (unsigned long long)r.y << 32 | r.x
+                                       : (unsigned long long)r.w << 32 | r.z;
+    return __uint_as_float((unsigned)(h >> (16 * (b & 3))) << 16);
+  }
+};
+template <>
+struct Raw8<float> {
+  float v[8];
+  __device__ __forceinline__ void load(const float* p) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  }
+  __device__ __forceinline__ unsigned nonzero() const {
+    unsigned nz = 0;
+#pragma unroll
+    for (int b = 0; b < 8; ++b) nz |= at(b) != 0.f ? 1u << b : 0u;
+    return nz;
+  }
+  __device__ __forceinline__ float at(int b) const {
+    return __bfloat162float(__float2bfloat16(v[b]));
+  }
+};
+
+// 16 bytes of bf16 at `p` if `on`, else zeros.
+__device__ __forceinline__ uint4 load_raw(const bf16* p, bool on) {
+  return on ? __ldg(reinterpret_cast<const uint4*>(p)) : make_uint4(0u, 0u, 0u, 0u);
+}
+
+// acc += sum over the list's n entries of val * x[row], in list order, as
+// drain does; the lane's 8 columns start at col (16 bytes, loaded if on).
+// kDepthBf x rows are in flight, each kept raw until its turn: entry e's
+// row is issued kDepthBf entries ahead of its products.
+__device__ __forceinline__ void drain_bf16(const int* lst_row, const float* lst_val, int n,
+                                           const bf16* __restrict__ x, int col, bool on,
+                                           int d, float (&acc)[8]) {
+  __syncwarp();
+  uint4 g[kDepthBf];
+#pragma unroll
+  for (int u = 0; u < kDepthBf; ++u)
+    g[u] = load_raw(x + (int64_t)(u < n ? lst_row[u] : 0) * d + col, on && u < n);
+  for (int b = 0; b < n; b += kDepthBf) {
+#pragma unroll
+    for (int u = 0; u < kDepthBf; ++u) {
+      const int e = b + u;
+      if (e >= n) break;  // warp-uniform
+      const float w = lst_val[e];
+      float xv[8];
+      unpack8(g[u], xv);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[c] = fmaf(w, xv[c], acc[c]);
+      const int e2 = e + kDepthBf;
+      if (e2 < n) g[u] = load_raw(x + (int64_t)lst_row[e2] * d + col, on);
+    }
+  }
+  __syncwarp();
+}
+
+// K2 for bf16 x with d % 8 == 0.  The warps, their rows (row k of a warp
+// is r0 + k kWarps) and each row's list and sums are tile_matmul_kernel's,
+// so the bits are its (kRowsBf rows a warp).  What differs is the work in
+// flight: a warp walks the tile rows of its rows as one stream of items
+// (kChunk columns of one tile's row), a cursor loading kGroupBf items a
+// group ahead of the one the scan tests, across the rows, so the next
+// row's first vals and tile_col loads are in flight while a row drains;
+// the scan tests the values without converting them and converts only
+// the nonzeros; the drain keeps kDepthBf x rows in flight (drain_bf16).
+template <typename V>
+__global__ void __launch_bounds__(kThreads, kMinBlocksBf)
+tile_matmul_bf16_kernel(const V* __restrict__ vals,
+                        const int* __restrict__ tile_col,
+                        const int* __restrict__ tile_rowptr,
+                        const bf16* __restrict__ x,
+                        bf16* __restrict__ out,
+                        int tile, int n_x, int out_rows, int d) {
+  __shared__ int lst_row_all[kWarps][kCap];
+  __shared__ float lst_val_all[kWarps][kCap];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int* lst_row = lst_row_all[warp];
+  float* lst_val = lst_val_all[warp];
+  const int rt = blockIdx.y;
+  const int c0 = blockIdx.z * kSlice;
+  const int t_begin = __ldg(tile_rowptr + rt), t_end = __ldg(tile_rowptr + rt + 1);
+  const int n_chunks = (tile + kChunk - 1) / kChunk;
+  const int r0 = blockIdx.x * (kWarps * kRowsBf) + warp;
+  int n_rows = 0;
+#pragma unroll
+  for (int k = 0; k < kRowsBf; ++k) {
+    const int r = r0 + k * kWarps;
+    if (r < tile && (int64_t)rt * tile + r < out_rows) n_rows = k + 1;
+  }
+  if (n_rows == 0) return;  // warp-uniform
+  const int col = c0 + 8 * lane;
+  const bool on = col < d;
+  float acc[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) acc[c] = 0.f;
+  auto put_row = [&](int k) {
+    store_cols<true>(out + ((int64_t)rt * tile + r0 + k * kWarps) * d, c0, lane, d, acc);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[c] = 0.f;
+  };
+  if (t_end == t_begin) {  // no tile: every row is zero
+    for (int k = 0; k < n_rows; ++k) put_row(k);
+    return;
+  }
+
+  // the load cursor: row lk, tile ik, chunk ck (lk == n_rows: past the end)
+  int lk = 0, ik = t_begin, ck = 0;
+  const V* vrow = vals + (int64_t)t_begin * tile * tile + (int64_t)r0 * tile + 8 * lane;
+  auto load_item = [&](Raw8<V>& item, int& tc) {
+    tc = -1;
+    if (lk < n_rows) {
+      if (ck * kChunk + 8 * lane < tile) {
+        item.load(vrow + (int64_t)(ik - t_begin) * tile * tile + ck * kChunk);
+        tc = __ldg(tile_col + ik);
+      }
+      if (++ck == n_chunks) {
+        ck = 0;
+        if (++ik == t_end) {
+          ik = t_begin;
+          ++lk;
+          vrow += (int64_t)kWarps * tile;
+        }
+      }
+    }
+  };
+  Raw8<V> cur[kGroupBf], nxt[kGroupBf];
+  int tc_cur[kGroupBf], tc_nxt[kGroupBf];  // the item's tile column, -1 past the tile
+#pragma unroll
+  for (int j = 0; j < kGroupBf; ++j) load_item(cur[j], tc_cur[j]);
+  // the scan's cursor: row lr, chunk ch, tile ir
+  int lr = 0, ch = 0, ir = t_begin;
+  int n = 0;  // list entries
+  while (lr < n_rows) {
+#pragma unroll
+    for (int j = 0; j < kGroupBf; ++j) load_item(nxt[j], tc_nxt[j]);
+#pragma unroll
+    for (int j = 0; j < kGroupBf; ++j) {
+      if (lr == n_rows) break;  // warp-uniform
+      const int xcol = tc_cur[j] * tile + ch * kChunk + 8 * lane;
+      unsigned nz = tc_cur[j] >= 0 ? cur[j].nonzero() : 0u;
+      if (xcol + 8 > n_x) nz &= n_x > xcol ? (1u << (n_x - xcol)) - 1u : 0u;
+      const int cnt = __popc(nz);
+      int incl = cnt;  // inclusive prefix sum over lanes
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int t = __shfl_up_sync(kFull, incl, off);
+        if (lane >= off) incl += t;
+      }
+      const int total_j = __shfl_sync(kFull, incl, 31);
+      if (n + total_j > kCap) {
+        drain_bf16(lst_row, lst_val, n, x, col, on, d, acc);
+        n = 0;
+      }
+      int pos = n + incl - cnt;
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+        if (nz >> b & 1u) {
+          lst_row[pos] = xcol + b;
+          lst_val[pos] = cur[j].at(b);
+          ++pos;
+        }
+      }
+      n += total_j;
+      if (++ch == n_chunks) {
+        ch = 0;
+        if (++ir == t_end) {  // the row is whole
+          ir = t_begin;
+          drain_bf16(lst_row, lst_val, n, x, col, on, d, acc);
+          put_row(lr);
+          n = 0;
+          ++lr;
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kGroupBf; ++j) {
+      cur[j] = nxt[j];
+      tc_cur[j] = tc_nxt[j];
+    }
+  }
+}
+
 template <typename V, typename T>
 void launch(const V* vals, const int* tile_col, const int* tile_rowptr, const T* x, T* out,
             int n_rowtiles, int tile, int n_x, int out_rows, int d, bool vec,
@@ -312,12 +575,18 @@ void launch(const V* vals, const int* tile_col, const int* tile_rowptr, const T*
   // run together and share their tiles' x rows in L2
   const dim3 grid((tile + kRowsPerBlock - 1) / kRowsPerBlock, n_rowtiles,
                   (d + kSlice - 1) / kSlice);
-  if (vec)
-    tile_matmul_kernel<V, T, true><<<grid, kThreads, 0, stream>>>(
-        vals, tile_col, tile_rowptr, x, out, tile, n_x, out_rows, d);
-  else
+  if (vec) {
+    if constexpr (sizeof(T) == 2)
+      tile_matmul_bf16_kernel<V>
+          <<<dim3((tile + kWarps * kRowsBf - 1) / (kWarps * kRowsBf), n_rowtiles, grid.z),
+             kThreads, 0, stream>>>(vals, tile_col, tile_rowptr, x, out, tile, n_x, out_rows, d);
+    else
+      tile_matmul_kernel<V, T, true><<<grid, kThreads, 0, stream>>>(
+          vals, tile_col, tile_rowptr, x, out, tile, n_x, out_rows, d);
+  } else {
     tile_matmul_kernel<V, T, false><<<grid, kThreads, 0, stream>>>(
         vals, tile_col, tile_rowptr, x, out, tile, n_x, out_rows, d);
+  }
 }
 
 // vals_kind: 0 float32, 1 int8, 2 bfloat16

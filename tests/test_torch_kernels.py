@@ -301,6 +301,77 @@ def test_tile_matmul_bf16_matches_plain_version(store, t, d):
         assert not got[r * t: (r + 1) * t].any()
 
 
+# The tile pairs (row tile, column tile) of the drain cases below: row
+# tile 2 and column tile 5 hold no tile, row tile 0 a tile in every other
+# column tile.
+_DRAIN_PAIRS = [(0, c) for c in (0, 1, 2, 3, 4, 6)] + [(1, 1), (1, 2), (1, 6), (3, 0), (3, 3),
+                                                      (4, 4), (5, 2), (6, 2), (6, 6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("case,t,d", [("long", 64, 256), ("short", 64, 64), ("empty", 32, 24),
+                                      ("full", 256, 256), ("nan", 64, 256), ("split", 64, 128)])
+def test_tile_matmul_bf16_drain(store, case, t, d):
+    """K2's bf16 kernel (its own scan and drain for 16-byte rows) on the
+    lists that stress it, against its plain version within the f32 sums'
+    tolerance plus one bf16 ulp, a second launch bitwise equal: "long" row
+    3 of row tile 1 holds 40 entries in each of its tiles (more than the x
+    rows in flight); "short" the rows of row tile 3 hold 0-3 entries;
+    "empty" rows of no entry beside row tile 2, which holds no tile (zero);
+    "full" row 5 of row tile 0 is full in its 6 tiles (1,536 entries: the
+    list of 512 drains mid-scan); "nan" NaN in rows of x that the tiles
+    hold only as zeros (the output stays finite: a zero is skipped, never
+    multiplied); "split" x is the gathered buffer of 3 shards and the
+    output the first shard's rows."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n_r, shards = 7, 3 if case == "split" else 1
+    trow, tcol = torch.tensor(_DRAIN_PAIRS, device="cuda").int().T.contiguous()
+    if case == "split":
+        tcol = (tcol + n_r * torch.randint(0, shards, tcol.shape, device="cuda",
+                                           generator=gen)).int()
+    mask = torch.rand(len(trow), t, t, device="cuda", generator=gen) < 0.02
+    if case == "long":
+        mask[trow == 1, 3, :] = False
+        mask[trow == 1, 3, :40] = True
+    elif case == "short":
+        mask[trow == 3] = torch.rand(mask[trow == 3].shape, device="cuda", generator=gen) < 1.5 / t
+    elif case == "empty":
+        mask[:, ::2] = False  # every other row of every tile holds no entry
+    elif case == "full":
+        mask[trow == 0, 5, :] = True
+    if store is torch.int8:
+        vals = (mask * torch.randint(-2, 3, mask.shape, device="cuda", generator=gen)).to(store)
+    else:
+        vals = (mask * torch.randn(mask.shape, device="cuda", generator=gen)).to(store)
+    n_x = shards * n_r * t - 3
+    out_rows = n_r * t if case == "split" else n_x
+    x = torch.randn(n_x, d, device="cuda", generator=gen).to(torch.bfloat16)
+    x_plain = x
+    if case == "nan":
+        held = torch.zeros(shards * n_r * t, dtype=torch.bool, device="cuda")
+        for i in range(len(trow)):
+            held[int(tcol[i]) * t + torch.nonzero(vals[i].float().abs().sum(0))[:, 0]] = True
+        free = torch.nonzero(~held[:n_x])[:, 0][::3]
+        assert free.numel() > 0
+        x = x.clone()
+        x[free] = float("nan")
+    ptr = torch.cat([trow.new_zeros(1), torch.bincount(trow, minlength=n_r).cumsum(0).int()])
+    before = (tm.LAUNCHES, tm.LAUNCHES_BF16)
+    got = tm.tile_matmul(vals, trow, tcol, ptr, x, out_rows)
+    again = tm.tile_matmul(vals, trow, tcol, ptr, x, out_rows)
+    torch.cuda.synchronize()
+    assert (tm.LAUNCHES, tm.LAUNCHES_BF16) == (before[0], before[1] + 2)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    assert bool(torch.isfinite(got).all())
+    want = tm.tile_matmul_reference(vals, trow, tcol, x_plain, n_r, out_rows)
+    abs_sum = tm.tile_matmul_reference(vals.to(torch.bfloat16).float().abs(), trow, tcol,
+                                       x_plain.float().abs(), n_r, out_rows)
+    assert _within_bf16_tolerance(got, want, abs_sum)
+    assert not got[2 * t: 3 * t].any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("reorder", [None, "labelprop"])
 def test_hybrid_spmm_gradient_matches_autograd(reorder):
@@ -563,6 +634,83 @@ def test_flash_tiles_split_counts(dtype, t, d):
     chip_smoke.check_flash_split(sets, q, k, v, g, rps)
     assert counts == {"fwd": before["fwd"] + 2 * shards, "dq": before["dq"] + 2 * shards,
                       "dkv": before["dkv"] + 2 * shards}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("case,t,d", [("long", 64, 256), ("short", 64, 256), ("empty", 32, 24),
+                                      ("full", 256, 256), ("split", 64, 256), ("wide", 32, 264),
+                                      ("odd", 32, 100)])
+def test_flash_dkv_bf16_drain(store, case, t, d):
+    """K5's bf16 entry (its own drain for 16-byte rows and d <= 256; the
+    wide path, d = 264, and the scalar one, d = 100, keep drain_bwd) on the
+    lists that stress it, with chip_smoke's checks (phase 27's tolerances,
+    K3 and K4 alongside, a second launch of each bitwise equal): "long"
+    source row 2 T + 9 gathers from 40 rows of each tile of column tile 2
+    (more than a 32-entry batch of stats and than the entries in flight);
+    "short" the source rows of column tile 3 hold 0-3 entries; "empty"
+    every other source row holds no entry, and column tile 5 no tile (K5's
+    rows of row tile 5 zero); "full" source row 2 T + 7 is full in the 4
+    tiles of column tile 2 (1,024 entries: the list of 512 drains
+    mid-scan); "split" two shards at split row counts (own rows 7 T, the
+    gathered buffer 14 T: rows_g is not rows)."""
+    _need_cuda()
+    import chip_smoke
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    n_r = 7
+    trow, tcol = torch.tensor(_DRAIN_PAIRS, device="cuda").int().T.contiguous()
+    mask = torch.rand(len(trow), t, t, device="cuda", generator=gen) < 0.03
+    if case == "long":
+        mask[tcol == 2, :, 9] = False
+        mask[tcol == 2, :40, 9] = True
+    elif case == "short":
+        mask[tcol == 3] = torch.rand(mask[tcol == 3].shape, device="cuda", generator=gen) < 1.5 / t
+    elif case == "empty":
+        mask[:, :, ::2] = False
+    elif case == "full":
+        mask[tcol == 2, :, 7] = True
+    if store is torch.int8:
+        vals = (mask * torch.randint(1, 3, mask.shape, device="cuda", generator=gen)).to(store)
+    else:
+        vals = (mask * torch.randn(mask.shape, device="cuda", generator=gen)).to(store)
+    before = dict(ft.LAUNCHES_BF16)
+    if case == "split":
+        # a 2 n_r operand whose shard s owns row tiles [s n_r, (s + 1) n_r):
+        # the pairs twice (the second shifted by n_r), their columns spread
+        # over both shards
+        rps = n_r * t
+        trow2 = torch.cat([trow, trow + n_r])
+        tcol2 = (torch.cat([tcol, tcol + n_r]) * 3 % (2 * n_r)).int()
+        vals = torch.cat([vals, vals.flip(0)])
+
+        def tile_set(rows, cols, v):  # sorted by the shard-local row tile
+            order = torch.argsort(rows.long() * 2 * n_r + cols.long())
+            rows = rows[order].contiguous()
+            ptr = torch.cat([rows.new_zeros(1),
+                             torch.bincount(rows, minlength=n_r).cumsum(0).int()])
+            return v[order].contiguous(), rows, cols[order].contiguous(), ptr
+
+        sets = []
+        for s in range(2):
+            f, b = trow2 // n_r == s, tcol2 // n_r == s
+            sets.append((tile_set(trow2[f] - s * n_r, tcol2[f], vals[f]),
+                         tile_set(tcol2[b] - s * n_r, trow2[b], vals[b].transpose(1, 2))))
+        q, k, v, g = (torch.randn(2 * rps, d, device="cuda", generator=gen).to(torch.bfloat16)
+                      for _ in range(4))
+        chip_smoke.check_flash_split(sets, q, k, v, g, rps)
+        assert ft.LAUNCHES_BF16 == {kind: before[kind] + 4 for kind in ("fwd", "dq", "dkv")}
+        return
+    rows = n_r * t - 3
+    q, k, v, g = (torch.randn(rows, d, device="cuda", generator=gen).to(torch.bfloat16)
+                  for _ in range(4))
+    fwd_set, bwd_set = _tile_sets(trow, tcol, vals, n_r)
+    stats, _ = chip_smoke.check_flash_kernels(fwd_set, bwd_set, q, k, v, g, rows)
+    dk, dv = ft.flash_tiles_dkv(*bwd_set, q, k, v, g, stats, 1.0 / d ** 0.5)
+    torch.cuda.synchronize()
+    assert ft.LAUNCHES_BF16 == {"fwd": before["fwd"] + 2, "dq": before["dq"] + 2,
+                                "dkv": before["dkv"] + 3}
+    assert not dk[5 * t: 6 * t].any() and not dv[5 * t: 6 * t].any()
 
 
 @pytest.mark.cuda
