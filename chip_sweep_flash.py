@@ -7,7 +7,7 @@ on shard 0 of its 4-shard tiled partition.
                                 [--store int8,bfloat16] [--shapes SBM,shard]
                                 [--variants a,b]
                                 [--baseline OTHER/flash_tiles.cu]
-                                [--source OTHER/flash_tiles.cu]
+                                [--source OTHER/flash_tiles.cu] [--f64]
 
 Each variant is ``plnlp_tpu_torch/csrc/flash_tiles.cu`` with some of its
 compile-time knobs replaced (rows a warp owns, list entries in flight,
@@ -21,8 +21,11 @@ version with ``chip_smoke.py``'s checks of K3; one that computes only a
 part of a kernel to split its time (``check`` "time"; ``PARTS`` names the
 kernels it splits, K3 by default) is timed there and not checked: the
 list scan alone, the scan with the gathers and no math, the scan with the
-math on rows in registers and no gather (K4 and K5 through ``drain_bwd``,
-K5-bf16 through its own drain), K3's scores or v rows alone.  Prints the
+math on rows in registers and no gather (``dq-*`` K4-bf16's own drain,
+``dkv-*`` K5-bf16's; ``bwd-*`` ``drain_bwd``, which since K4-bf16 and
+K5-bf16 have kernels of their own runs only the f32 K4 and K5 and the
+bf16 wide and scalar paths, and the bf16 entries of an earlier commit's
+file given with ``--source``), K3's scores or v rows alone.  Prints the
 compiler's register and spill report of each variant, then each variant's
 K3, K4 and K5 times (CUDA events; median of 5 runs of 10 calls) on each
 shape, feature type and tile store, the source's own first and again
@@ -40,7 +43,12 @@ gathered-row count: then only the SBM shape runs) as the variant
 the source's bits, so the pair is an A/B of two commits in one run.
 ``--source`` takes the variants from another ``flash_tiles.cu`` (an
 earlier commit's, to split its time) in place of the repository's.
-Imports nothing of JAX or of the JAX package.
+``--f64`` then prints, at the SBM shape on the int8 tiles, the largest
+error of K4's dq and of K5's dv (the source's kernels, and their plain
+versions) against a float64 evaluation of the same function, each also
+as a share of ``chip_smoke.py``'s tolerance for the kernel against the
+plain version (which stays as it is).  Imports nothing of JAX, of the
+JAX package or of ``tests/``.
 """
 
 from __future__ import annotations
@@ -204,10 +212,11 @@ PK_PREFETCH = [("  const int crow_lane = scored ? jrow : -1;\n",
     }
   }
 """)]
-# The parts of drain_bwd (K4 and K5 in f32, K4 in bf16, and K5 in bf16
-# before its own drain; time an earlier commit's with --source): the list
-# scan alone (each drain reads its last entry, so the lists are built); the
-# scan, the list and the gathers of the two rows and the stats with no dot
+# The parts of drain_bwd (K4 and K5 in f32, the bf16 wide and scalar
+# paths, and K4 and K5 in bf16 before their own drains; time an earlier
+# commit's with --source): the list scan alone (each drain reads its last
+# entry, so the lists are built); the scan, the list and the gathers of
+# the two rows and the stats with no dot
 # product, butterfly or expf (the registers take the rows as they come);
 # the scan, the list and the math on the warp's own rows in registers in
 # place of the gathered ones (no gather; each entry's terms depend on its
@@ -320,7 +329,7 @@ DKV_NO_MATH = DKV_SIG + """  __syncwarp();
   load_stats_bf(lst, lane, n, stats, m_l, den_l, del_l);
   for (int b = 0; b < n; b += kUnrollDkvBf) {
     uint4 qa[kUnrollDkvBf], ga[kUnrollDkvBf];
-    issue_dkv_bf(lst, b, n, q, g, col, on, d, qa, ga);
+    issue_rows_bf(lst, b, n, q, g, col, on, d, qa, ga);
     if (b && (b & 31) == 0) load_stats_bf(lst, b + lane, n, stats, m_l, den_l, del_l);
 #pragma unroll
     for (int u = 0; u < kUnrollDkvBf; ++u) {
@@ -370,6 +379,66 @@ DKV_NO_GATHER = DKV_SIG + """  __syncwarp();
   __syncwarp();
 }
 """
+# The parts of K4-bf16's own drain (drain_dq_bf), as K5-bf16's: the list
+# scan alone; the scan, the list and the gathers of the two rows in flight
+# as the drain issues them, with no dot product, butterfly or expf; the
+# scan, the list and the math on the warp's own rows in place of the
+# gathered ones (no gather)
+DQ_SIG = """\
+__device__ __forceinline__ void drain_dq_bf(const int* lst, int n, DqRowBf& w,
+                                            const bf16* __restrict__ k,
+                                            const bf16* __restrict__ v, int lane, int d,
+                                            float scale) {
+"""
+DQ_SCAN_ONLY = DQ_SIG + """  __syncwarp();
+  if (n) w.dq[0] += (float)lst[n - 1];
+  __syncwarp();
+}
+"""
+DQ_NO_MATH = DQ_SIG + """  __syncwarp();
+  const int col = 8 * lane;
+  const bool on = col < d;
+  for (int b = 0; b < n; b += kUnrollDqBf) {
+    uint4 ka[kUnrollDqBf], va[kUnrollDqBf];
+    issue_rows_bf(lst, b, n, k, v, col, on, d, ka, va);
+#pragma unroll
+    for (int u = 0; u < kUnrollDqBf; ++u) {
+      if (b + u >= n) break;  // warp-uniform
+      float xk[8], xv[8];
+      unpack8(ka[u], xk);
+      unpack8(va[u], xv);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) w.dq[c] += xk[c] + xv[c];
+    }
+  }
+  __syncwarp();
+}
+"""
+DQ_NO_GATHER = DQ_SIG + """  __syncwarp();
+  float oq[8], og[8];
+  unpack8(w.q, oq);
+  unpack8(w.g, og);
+  for (int b = 0; b < n; b += kUnrollDqBf) {
+    float x[2 * kUnrollDqBf], r[kUnrollDqBf];
+#pragma unroll
+    for (int u = 0; u < kUnrollDqBf; ++u) {
+      r[u] = (float)(b + u < n ? lst[b + u] : 0) * 1e-30f;
+      x[2 * u] = dot8(oq, oq, r[u]);
+      x[2 * u + 1] = dot8(og, og, r[u]);
+    }
+    warp_sums(x, lane);
+#pragma unroll
+    for (int u = 0; u < kUnrollDqBf; ++u) {
+      if (b + u >= n) break;  // warp-uniform
+      const float a = expf(x[2 * u] * scale - (w.m + r[u])) / (w.den + r[u]);
+      const float ds = round_to<bf16>(a * (x[2 * u + 1] - w.delta) * scale);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) w.dq[c] = fmaf(ds, oq[c], w.dq[c]);
+    }
+  }
+  __syncwarp();
+}
+"""
 LANE_PER_ENTRY = [("    if constexpr (sizeof(F) == 2 && VEC) {", "    if constexpr (false) {")]
 EDITS = {"pk-scan-only": PK_SCAN_ONLY, "pk-no-v": PK_NO_V, "pk-no-scores": PK_NO_SCORES,
          "pk-prefetch": PK_PREFETCH, "lpe": LANE_PER_ENTRY}
@@ -396,6 +465,18 @@ VARIANTS = [
     ("pk-unroll4-blocks6", {"kUnrollPk": 4, "kMinBlocksPk": 6}, {}, "bits"),
     ("pk-group1", {"kGroupPk": 1}, {}, "bits"),
     ("pk-warps8-blocks3", {"kWarpsPk": 8, "kMinBlocksPk": 3}, {}, "bits"),
+    ("dq-scan-only", {}, {"drain_dq_bf": DQ_SCAN_ONLY}, "time"),
+    ("dq-no-math", {}, {"drain_dq_bf": DQ_NO_MATH}, "time"),
+    ("dq-no-gather", {}, {"drain_dq_bf": DQ_NO_GATHER}, "time"),
+    ("dq-u1", {"kUnrollDqBf": 1}, {}, "bits"),
+    ("dq-u4-blocks2", {"kUnrollDqBf": 4, "kMinBlocksDqBf": 2, "kGroupDqBfWideVals": 2}, {},
+     "bits"),
+    ("dq-group1", {"kGroupDqBf": 1}, {}, "bits"),
+    ("dq-group2", {"kGroupDqBfWideVals": 2}, {}, "bits"),
+    ("dq-rows2", {"kRowsDqBf": 2}, {}, "bits"),
+    ("dq-rows8", {"kRowsDqBf": 8}, {}, "bits"),
+    ("dq-blocks2", {"kMinBlocksDqBf": 2}, {}, "bits"),
+    ("dq-blocks4", {"kMinBlocksDqBf": 4}, {}, "bits"),
     ("dkv-scan-only", {}, {"drain_dkv_bf": DKV_SCAN_ONLY}, "time"),
     ("dkv-no-math", {}, {"drain_dkv_bf": DKV_NO_MATH}, "time"),
     ("dkv-no-gather", {}, {"drain_dkv_bf": DKV_NO_GATHER}, "time"),
@@ -427,26 +508,29 @@ VARIANTS = [
     ("group4", {"kGroup": 4}, {}, "bits"),
 ]
 KINDS = ("fwd", "dq", "dkv")
-# the kernels a "time" variant computes a part of (the rest are checked)
-PARTS = {"dkv-scan-only": ("dkv",), "dkv-no-math": ("dkv",), "dkv-no-gather": ("dkv",),
-         "bwd-scan-only": ("dq", "dkv"), "bwd-no-math": ("dq", "dkv"),
-         "bwd-no-gather": ("dq", "dkv")}
+# the kernels a "time" variant computes a part of, by the first word of its
+# name (K3 otherwise; the rest are checked)
+PARTS = {"dq": ("dq",), "dkv": ("dkv",), "bwd": ("dq", "dkv")}
 LABELS = {"fwd": "K3", "dq": "K4", "dkv": "K5"}
 
 
 def path_report(report: str) -> str:
     """Registers, spills and shared memory of the variant's K3, K4 and K5
     at the collab shape (int8 tiles, d = 256: 16-byte loads, one slice), f32
-    and bf16 features (K3 in bf16: the packed kernel)."""
+    and bf16 features (in bf16 K3's packed kernel, K4's and K5's own, these
+    two also on the bf16 and f32 tile stores)."""
     out, kind = [], None
     for line in report.splitlines():
         if "Compiling entry function" in line:
             fwd = re.search(r"flash_fwd_kernelIa(f|13__nv_bfloat16)Lb1EE", line)
             pk = re.search(r"flash_fwd_packed_kernelIaEE", line)
             bwd = re.search(r"flash_bwd_kernelIa(f|13__nv_bfloat16)Lb1ELb0ELb([01])EE", line)
-            dkv = re.search(r"flash_dkv_bf16_kernelIaEE", line)
+            own = re.search(r"flash_(dq|dkv)_bf16_kernelI(a|13__nv_bfloat16|f)EE", line)
             dt = lambda m: "" if m.group(1) == "f" else "-bf16"  # noqa: E731
-            kind = (f"K3{dt(fwd)}" if fwd else "K3-bf16" if pk else "K5-bf16" if dkv
+            kind = (f"K3{dt(fwd)}" if fwd else "K3-bf16" if pk
+                    else f"{'K4' if own.group(1) == 'dq' else 'K5'}-bf16"
+                         + {"a": "", "f": " (f32 tiles)"}.get(own.group(2), " (bf16 tiles)")
+                    if own
                     else f"{'K5' if bwd.group(2) == '1' else 'K4'}{dt(bwd)}" if bwd else None)
         elif kind and "spill stores" in line:
             sp = re.findall(r"(\d+) bytes spill", line)
@@ -548,6 +632,57 @@ def shard_tiles(data, dev):
     return pg.rows_per_shard, sh.tiles, sh.tiles_t
 
 
+def f64_backward(vals, tile_row, tile_col, q, k, v, g, stats, n_r, scale, transposed):
+    """K4's dq over the row-sorted tiles, or K5's dv over the transposed
+    ones (``transposed``), evaluated in float64 from the same inputs, chunk
+    by chunk as the plain versions run: the dot products, exp and divide in
+    f64, and with bf16 features each second product's weight rounded to
+    bf16 (as the TPU kernels cast it) from its f64 value."""
+    import torch
+
+    from plnlp_tpu_torch.ops.flash_tiles import _chunks, _gathered_tiles
+
+    t, d = vals.shape[1], q.shape[1]
+    bf16 = q.dtype == torch.bfloat16
+
+    def tiles(a, n):  # (rows, D) -> (n, T, D) float64, rows past the end zero
+        a = a.double()
+        pad = n * t - a.shape[0]
+        if pad:
+            a = torch.cat([a, a.new_zeros((pad, d))])
+        return a.reshape(n, t, d)
+
+    def weight(w):
+        return w.to(torch.bfloat16).double() if bf16 else w
+
+    own, gathered = ((k, v), (q, g)) if transposed else ((q, g), (k, v))
+    n_g = _gathered_tiles(gathered[0].shape[0], t)
+    at, bt = tiles(own[0], n_r), tiles(own[1], n_r)
+    ct, dt = tiles(gathered[0], n_g), tiles(gathered[1], n_g)
+    n_s = n_g if transposed else n_r  # the stats are the gathered rows' in K5
+    st = stats.double()
+    if n_s * t > st.shape[0]:  # rows past the end read (0, 1, 0)
+        fill = st.new_zeros((n_s * t - st.shape[0], 3))
+        fill[:, 1] = 1.0
+        st = torch.cat([st, fill])
+    st = st.reshape(n_s, t, 3)
+    out = at.new_zeros((n_r, t, d))
+    for c in _chunks(vals.shape[0]):
+        r, cc = tile_row[c].long(), tile_col[c].long()
+        s = torch.bmm(at[r], ct[cc].transpose(1, 2)) * scale
+        if transposed:
+            m, den = st[cc][:, None, :, 0], st[cc][:, None, :, 1]
+        else:
+            m, den, delta = (st[r][:, :, None, i] for i in range(3))
+        alpha = torch.where(vals[c] != 0, torch.exp(s - m) / den, 0.0)
+        if transposed:
+            out.index_add_(0, r, torch.bmm(weight(alpha), dt[cc]))
+        else:
+            ds = alpha * (torch.bmm(bt[r], dt[cc].transpose(1, 2)) - delta) * scale
+            out.index_add_(0, r, torch.bmm(weight(ds), ct[cc]))
+    return out.reshape(-1, d)[:own[0].shape[0]]
+
+
 def card_name() -> str:
     """The card's name and power limit as nvidia-smi gives them."""
     return subprocess.run(
@@ -570,6 +705,9 @@ def main() -> int:
     ap.add_argument("--shapes", default="SBM,shard",
                     help="comma-separated: SBM (the single operand), shard (shard 0 of the "
                          "4-shard tiled partition at split row counts)")
+    ap.add_argument("--f64", action="store_true",
+                    help="then print K4's dq and K5's dv errors, the kernels' and the plain "
+                         "versions', against a float64 evaluation at the SBM shape")
     args = ap.parse_args()
     dtypes = args.dtype.split(",")
     stores = args.store.split(",")
@@ -577,6 +715,8 @@ def main() -> int:
     if (not set(dtypes) <= {"float32", "bfloat16"} or not set(stores) <= {"int8", "bfloat16"}
             or not set(shape_names) <= {"SBM", "shard"}):
         ap.error("--dtype, --store or --shapes names an unknown value")
+    if args.f64 and "SBM" not in shape_names:
+        ap.error("--f64 runs at the SBM shape")
 
     import torch
 
@@ -690,7 +830,7 @@ def main() -> int:
                 call = caller(name, kind, sname, dt, store)
                 got = call()
                 torch.cuda.synchronize()
-                if check[name] == "time" and kind in PARTS.get(name, ("fwd",)):
+                if check[name] == "time" and kind in PARTS.get(name.split("-")[0], ("fwd",)):
                     notes.append(f"{LABELS[kind]} computes a part: timed, not checked")
                 elif check[name] != "plain" or kind != "fwd":
                     chip_smoke.require(all(torch.equal(a, b) for a, b in
@@ -711,6 +851,36 @@ def main() -> int:
             parts = ", ".join(f"{LABELS[kd]} {ms:.4f} ms" for kd, ms in zip(KINDS, times))
             print(f"[sweep] {name} ({sname}, {dt}, {store} tiles): {parts} ({same}); "
                   f"card {card}", flush=True)
+    if args.f64:
+        # the SBM's own int8 tiles; tile_row of each set from its row pointer
+        _, _, fwd, bwd = shapes["SBM"]
+        n_r = fwd[2].shape[0] - 1
+        sets = {kind: (ts[0], torch.repeat_interleave(
+                    torch.arange(n_r, device=dev, dtype=torch.int32), ts[2].diff().long()),
+                    ts[1]) for kind, ts in (("dq", fwd), ("dkv", bwd))}
+        for dt in dtypes:
+            q, k, v, g, stats = inputs[("SBM", dt)][:5]
+            sum_rtol = chip_smoke.SUM_RTOL + (chip_smoke.BF16_RTOL if dt == "bfloat16" else 0.0)
+            for kind, name in (("dq", "dq"), ("dkv", "dv")):
+                got = caller("source", kind, "SBM", dt, "int8")()[-1].clone()
+                plain = (ft.flash_tiles_dq_reference(*sets[kind], q, k, v, g, stats, n_r, scale)
+                         if kind == "dq" else
+                         ft.flash_tiles_dkv_reference(*sets[kind], q, k, v, g, stats, n_r,
+                                                      scale)[1])
+                exact = f64_backward(*sets[kind], q, k, v, g, stats, n_r, scale, kind == "dkv")
+                mags = chip_smoke.flash_bwd_magnitudes(*sets[kind], q, k, v, g, stats, scale,
+                                                       kind == "dkv")[-1]
+                tol = (chip_smoke.SUM_ATOL + sum_rtol * mags).double()
+                errs = {who: (a.double() - exact).abs() for who, a in (("kernel", got),
+                                                                          ("plain", plain))}
+                _, ratio, _ = chip_smoke.sum_errors(got, plain, mags, sum_rtol=sum_rtol)
+                parts = "; ".join(f"{who} max abs {float(e.max()):.4e} (max err/tol "
+                                  f"{float((e / tol).max()):.4f})" for who, e in errs.items())
+                print(f"[f64] {LABELS[kind]}{'-bf16' if dt == 'bfloat16' else ''} {name} (SBM, "
+                      f"int8 tiles) against float64: {parts}; kernel against plain max err/tol "
+                      f"{ratio:.4f} (tol {chip_smoke.SUM_ATOL} + {sum_rtol:.4g}*sum|terms|); "
+                      f"card {card}", flush=True)
+                del got, plain, exact, mags, tol, errs
     print(card, flush=True)
     return 0
 

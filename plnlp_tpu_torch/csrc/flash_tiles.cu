@@ -84,13 +84,15 @@
 //      entry's stats, for K5), s = q . k and g . v are lane partials and one
 //      butterfly each, a = exp(s scale - M) / den and ds = a (g.v - delta)
 //      scale, and the registers take ds k_j (K4), or ds q_i and a g_i (K5).
-//      bf16 features with d % 8 == 0 and d <= 256 take K5's own kernel
-//      (below), with the same arithmetic.
+//      bf16 features with d % 8 == 0 and d <= 256 take K4's and K5's own
+//      kernels (below), with the same arithmetic a few entries a step; f32
+//      features and the bf16 wide and scalar paths keep drain_bwd.
 // Zeros of vals are skipped, never multiplied.  A block is 8 warps of 1 row
 // (K3, K4) or 2 (K5), and the row slices of one row tile are neighbours in
 // launch order: few row tiles are in flight at once, so the rows they
 // gather from their column tiles stay in L2.  Registers are capped at 64
-// (K3, K4) and 80 (K5; 128 for K5's bf16 kernel).  d > 256 takes gridDim.z slices of 256 output
+// (K3, K4) and 80 (K5; K4's bf16 kernel 80, K5's 128).  d > 256 takes
+// gridDim.z slices of 256 output
 // columns; each slice recomputes the dot products over the full d (K4 and
 // K5 read the warp's own rows in chunks) in the same order, so K3's m and
 // den come out with the same bits in every slice (slice 0 writes them).
@@ -154,38 +156,52 @@
 // and 0.794 on bf16 tiles against drain_fwd's 0.883 and 0.895 in the same
 // run, 3.2x the bound; 1 row a warp 0.975, 3 rows 0.741, 4 rows 0.89-1.0.
 //
-// K5 in bf16, redesigned (flash_dkv_bf16_kernel: bf16 features, d % 8 == 0,
-// d <= 256; the wide and the scalar paths keep flash_bwd_kernel).  Split on
-// the H100 (chip_sweep_flash.py, one H100 80GB HBM3 at 700.00 W, the SBM
-// shape, int8 tiles), drain_bwd's K5-bf16 took 0.917 ms: the list scan
-// alone 0.276, the scan and the gathers with no math 0.524, the scan and
-// the math on rows in registers with no gather 0.588.  The parts added up:
-// a warp had one entry in flight, and its gathers, stats, butterflies,
-// expf and divide were one dependent chain.  The bf16 kernel keeps one warp
-// a source row, the lists and each sum's order (the same bits) and changes
+// K4 and K5 in bf16, redesigned (flash_dq_bf16_kernel, flash_dkv_bf16_kernel:
+// bf16 features, d % 8 == 0, d <= 256; the wide and the scalar paths keep
+// flash_bwd_kernel).  Split on the H100 (chip_sweep_flash.py, one H100 80GB
+// HBM3 at 700.00 W, the SBM shape, int8 tiles), drain_bwd took 0.917 ms for
+// K5-bf16 (the list scan alone 0.276, the scan and the gathers with no math
+// 0.524, the scan and the math on rows in registers with no gather 0.588)
+// and 0.685 for K4-bf16 (0.230, 0.374, 0.479).  The parts added up: a warp
+// had one entry in flight, and its gathers, stats, butterflies, expf and
+// divide were one dependent chain.  Both bf16 kernels keep one warp an
+// output row, the lists and each sum's order (the same bits) and change
 // the rest:
-// - the scan walks the warp's kRowsDkvBf rows' tile rows as one stream of
-//   items, a cursor loading the next kGroupDkvBf items before the scan
-//   tests the current ones, across rows (so the next row's first loads fly
-//   while a row drains), counting rows, tiles and chunks with no division;
-// - k_j and v_j stay packed (16 bytes each a lane) and are unpacked at each
-//   dot product; the q_i and g_i rows of kUnrollDkvBf entries are issued
-//   together and kept raw until their math;
-// - the stats of each 32-entry batch of the list are loaded by one lane an
-//   entry and handed out by shuffle;
-// - a step's 2 kUnrollDkvBf dot products are reduced together (warp_sums:
+// - one walk for both (scan_rows_bf): the warp's rows' tile rows as one
+//   stream of items, a cursor loading the next group of items before the
+//   scan tests the current ones, across rows (so the next row's first
+//   loads fly while a row drains), counting rows, tiles and chunks with no
+//   division;
+// - the own rows (K4 q_i and g_i, K5 k_j and v_j) stay packed (16 bytes
+//   each a lane) and are unpacked at each dot product; the gathered rows of
+//   a step's entries are issued together and kept raw until their math;
+// - K5 loads the stats of each 32-entry batch one lane an entry and hands
+//   them out by shuffle; K4's stats are its own row's, loaded with q_i;
+// - a step's dot products (two an entry) are reduced together (warp_sums:
 //   each keeps warp_sum's tree of additions, in 17 shuffles for 4 entries
 //   where 8 butterflies take 40).
-// It needs ~126 registers, so it runs 2 blocks of 8 warps an SM: at the
-// 80 registers of 3 blocks every version spilled 100-630 bytes and lost.
-// 16 KB of shared memory a block (the lists).  Measured there: 0.757 ms on
-// int8 tiles and 0.759 on bf16 tiles against drain_bwd's 0.915 and 0.928
-// in the same run; the scan alone 0.235, with the gathers and no math
-// 0.505, with the math and no gather 0.540.  Tried and lost,
-// with the same bits: 1 or 2 entries a step, with or without the next
-// step's rows issued before a step's math (0.81-0.96), 8 entries a step
-// (spills, 1.32), 3 blocks an SM (0.85-1.25), 1, 2 or 8 rows a warp
-// (0.88, 0.79, 0.78).
+// Both are latency-bound, so what sets them is warps an SM against entries
+// in flight a warp.  K5 needs ~126 registers at 4 entries a step and runs 2
+// blocks of 8 warps an SM: at the 80 registers of 3 blocks every version
+// spilled 100-630 bytes and lost.  K4, with one sum and no stats an entry,
+// runs 2 entries a step in 80 registers at 3 blocks; its int8 store keeps
+// 2 items a group ahead, the 2-byte store 1 (a second spilled 68 bytes and
+// lost).  16 KB of shared memory a block (the lists).  Measured there:
+// K5-bf16 0.757 ms on int8 tiles and 0.759 on bf16 tiles against
+// drain_bwd's 0.915 and 0.928 in the same run (its scan alone 0.235, with
+// the gathers and no math 0.505, with the math and no gather 0.540);
+// K4-bf16 0.594 ms on int8 tiles and 0.639 on bf16 tiles against
+// drain_bwd's 0.683 and 0.688, 0.167 and 0.178 against 0.181 and 0.182 on
+// a shard of the 4-shard tiled partition (its scan alone 0.174, with the
+// gathers 0.406, with the math 0.443).  Tried and lost, with the same
+// bits: for K5 1 or 2 entries a step, with or without the next step's rows
+// issued before a step's math (0.81-0.96), 8 entries a step (spills, 1.32),
+// 3 blocks an SM (0.85-1.25), 1, 2 or 8 rows a warp (0.88, 0.79, 0.78); for
+// K4 4 entries a step at 2 blocks (114 registers: 0.672), 1 entry (0.704),
+// 4 blocks (64 registers, spills: 0.689), 8 entries (0.93-1.01), 2 or 8 rows a
+// warp (0.606, 0.629; 2 rows is 3% faster on the shard), 1 item a group on
+// int8 tiles (0.626), each item's values tested as the group is handed
+// over in place of as the scan reaches it (0.595, and 0.688 on bf16 tiles).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -249,6 +265,14 @@ constexpr int kRowsDkvBf = 4;       // source rows a warp, one after another
 constexpr int kGroupDkvBf = 2;      // tile-row items (kChunk columns) loaded a group ahead
 constexpr int kUnrollDkvBf = 4;     // list entries a step (their rows raw until their math)
 constexpr int kMinBlocksDkvBf = 2;  // blocks an SM
+
+// K4 with bf16 features, 16-byte rows and d <= 256 (flash_dq_bf16_kernel,
+// on K5-bf16's scan; set by timing on the H100: chip_sweep_flash.py).
+constexpr int kRowsDqBf = 4;           // destination rows a warp, one after another
+constexpr int kGroupDqBf = 2;          // tile-row items (kChunk columns) loaded a group ahead
+constexpr int kGroupDqBfWideVals = 1;  // the same on the 2- and 4-byte stores (larger items)
+constexpr int kUnrollDqBf = 2;         // list entries a step (their rows raw until their math)
+constexpr int kMinBlocksDqBf = 3;      // blocks an SM (80 registers)
 
 enum Kind { kFwd, kDq, kDkv };
 
@@ -1052,7 +1076,7 @@ flash_bwd_kernel(const V* __restrict__ vals, const int* __restrict__ tile_col,
 }
 
 // ---------------------------------------------------------------------------
-// K5 in bf16: the gathered rows kept packed and in flight
+// K4 and K5 in bf16: one lean scan, the gathered rows kept packed and in flight
 // ---------------------------------------------------------------------------
 
 // A warp's source row while K5-bf16 drains its list: k_j and v_j as loaded
@@ -1083,19 +1107,20 @@ __device__ __forceinline__ void load_stats_bf(const int* lst, int e, int n,
   }
 }
 
-// The q_i and g_i rows of list entries [e, e + kUnrollDkvBf), raw; zeros
-// past the list's n entries.
-__device__ __forceinline__ void issue_dkv_bf(const int* lst, int e, int n,
-                                             const bf16* __restrict__ q,
-                                             const bf16* __restrict__ g, int col, bool on,
-                                             int d, uint4 (&qa)[kUnrollDkvBf],
-                                             uint4 (&ga)[kUnrollDkvBf]) {
+// The two gathered rows (K4: k_j and v_j; K5: q_i and g_i) of list entries
+// [e, e + kU), the lane's 16 bytes of each, raw; zeros past the list's n
+// entries.
+template <int kU>
+__device__ __forceinline__ void issue_rows_bf(const int* lst, int e, int n,
+                                              const bf16* __restrict__ a,
+                                              const bf16* __restrict__ b, int col, bool on,
+                                              int d, uint4 (&ra)[kU], uint4 (&rb)[kU]) {
 #pragma unroll
-  for (int u = 0; u < kUnrollDkvBf; ++u) {
+  for (int u = 0; u < kU; ++u) {
     const bool live = on && e + u < n;
     const int64_t row = e + u < n ? lst[e + u] : 0;
-    qa[u] = load_raw(q + row * d + col, live);
-    ga[u] = load_raw(g + row * d + col, live);
+    ra[u] = load_raw(a + row * d + col, live);
+    rb[u] = load_raw(b + row * d + col, live);
   }
 }
 
@@ -1155,7 +1180,7 @@ __device__ __forceinline__ void drain_dkv_bf(const int* lst, int n, DkvRowBf& w,
   load_stats_bf(lst, lane, n, stats, m_l, den_l, del_l);
   for (int b = 0; b < n; b += kUnrollDkvBf) {
     uint4 qa[kUnrollDkvBf], ga[kUnrollDkvBf];
-    issue_dkv_bf(lst, b, n, q, g, col, on, d, qa, ga);
+    issue_rows_bf(lst, b, n, q, g, col, on, d, qa, ga);
     if (b && (b & 31) == 0) load_stats_bf(lst, b + lane, n, stats, m_l, den_l, del_l);
     float x[2 * kUnrollDkvBf];  // s = q_i . k_j and g_i . v_j of each entry
     {
@@ -1195,27 +1220,29 @@ __device__ __forceinline__ void drain_dkv_bf(const int* lst, int n, DkvRowBf& w,
   __syncwarp();
 }
 
-// K5 for bf16 q, k, v, g with d % 8 == 0 and d <= 256 (one slice): a warp
-// owns kRowsDkvBf source rows of a row tile, one after another (row lr is
-// r0 + lr kWarps, as flash_bwd_kernel assigns them), and walks their tile
-// rows as one stream of items (kChunk columns of one tile's row), a cursor
-// loading kGroupDkvBf items a group ahead of the one the scan tests,
-// across the rows, so the next row's first items are in flight while a
-// row drains.  The lists (scan_row's, in column order, drained before they
-// overflow) and the sums are flash_bwd_kernel's, so the bits are its.
-template <typename V>
-__global__ void __launch_bounds__(kThreads, kMinBlocksDkvBf)
-flash_dkv_bf16_kernel(const V* __restrict__ vals, const int* __restrict__ tile_col,
-                      const int* __restrict__ tile_rowptr, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const bf16* __restrict__ q,
-                      const bf16* __restrict__ g, const float* __restrict__ stats,
-                      float* __restrict__ dk, float* __restrict__ dv, int tile, int rows,
-                      int rows_g, int d, float scale) {
-  __shared__ int lst_all[kWarps][kCap];
+// The walk K4-bf16 and K5-bf16 share.  The warp owns kRows rows of a row
+// tile, one after another (row lr is r0 + lr kWarps, as flash_bwd_kernel
+// assigns them), and walks their tile rows as one stream of items (kChunk
+// columns of one tile's row), a cursor loading kGroup items a group ahead
+// of the ones the scan tests, across the rows, so the next row's first
+// items are in flight while a row drains; it counts rows, tiles and chunks
+// with no division.  The values are tested as loaded; sources at or past
+// rows_g are left out (their terms are exactly 0).  The nonzeros' gathered
+// rows land in the warp's list `lst` in column order, as scan_row puts
+// them, and drain(n) takes the list's n entries before a group could
+// overflow it and at the end of each row.  start_row(grow) readies the
+// sums of global row grow (its own rows, its stats, zero sums) before its
+// first drain, put_row(grow) stores them after its last; a row tile with
+// no tile only starts and puts its rows.
+template <int kRows, int kGroup, typename V, typename Start, typename Drain, typename Put>
+__device__ __forceinline__ void scan_rows_bf(const V* __restrict__ vals,
+                                             const int* __restrict__ tile_col,
+                                             const int* __restrict__ tile_rowptr, int tile,
+                                             int rows, int rows_g, int* lst, Start&& start_row,
+                                             Drain&& drain, Put&& put_row) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  int* lst = lst_all[warp];
-  constexpr int kRowsPerBlock = kWarps * kRowsDkvBf;
+  constexpr int kRowsPerBlock = kWarps * kRows;
   const int n_slices = (tile + kRowsPerBlock - 1) / kRowsPerBlock;
   const int rt = blockIdx.x / n_slices;
   const int slice = blockIdx.x - rt * n_slices;
@@ -1223,33 +1250,17 @@ flash_dkv_bf16_kernel(const V* __restrict__ vals, const int* __restrict__ tile_c
   const int r0 = slice * kRowsPerBlock + warp;
   int n_rows = 0;
 #pragma unroll
-  for (int lr = 0; lr < kRowsDkvBf; ++lr) {
+  for (int lr = 0; lr < kRows; ++lr) {
     const int r = r0 + lr * kWarps;
     if (r < tile && (int64_t)rt * tile + r < rows) n_rows = lr + 1;
   }
   if (n_rows == 0) return;  // warp-uniform
-  const int col = 8 * lane;
-  const bool on = col < d;
   const int n_chunks = (tile + kChunk - 1) / kChunk;
-
-  DkvRowBf w;
   const int64_t grow0 = (int64_t)rt * tile + r0;
-  auto start_row = [&](int lr) {
-    const int64_t at = (grow0 + lr * kWarps) * d + col;
-    w.k = load_raw(k + at, on);
-    w.v = load_raw(v + at, on);
-#pragma unroll
-    for (int c = 0; c < 8; ++c) w.dk[c] = w.dv[c] = 0.f;
-  };
-  auto put_row = [&](int lr) {
-    const int64_t grow = grow0 + lr * kWarps;
-    store_cols<true, bf16>(dk + grow * d, 0, lane, d, w.dk);
-    store_cols<true, bf16>(dv + grow * d, 0, lane, d, w.dv);
-  };
   if (t_end == t_begin) {  // no tile: every row's sums are zero
     for (int lr = 0; lr < n_rows; ++lr) {
-      start_row(lr);
-      put_row(lr);
+      start_row(grow0 + lr * kWarps);
+      put_row(grow0 + lr * kWarps);
     }
     return;
   }
@@ -1274,19 +1285,19 @@ flash_dkv_bf16_kernel(const V* __restrict__ vals, const int* __restrict__ tile_c
       }
     }
   };
-  Vals8<V> cur[kGroupDkvBf], nxt[kGroupDkvBf];
-  int tc_cur[kGroupDkvBf], tc_nxt[kGroupDkvBf];  // the item's tile column, -1 past the tile
+  Vals8<V> cur[kGroup], nxt[kGroup];
+  int tc_cur[kGroup], tc_nxt[kGroup];  // the item's tile column, -1 past the tile
 #pragma unroll
-  for (int j = 0; j < kGroupDkvBf; ++j) load_item(cur[j], tc_cur[j]);
-  start_row(0);
+  for (int j = 0; j < kGroup; ++j) load_item(cur[j], tc_cur[j]);
+  start_row(grow0);
   // the scan's cursor: row lr, chunk ch, tile ir
   int lr = 0, ch = 0, ir = t_begin;
   int n = 0;  // list entries
   while (lr < n_rows) {
 #pragma unroll
-    for (int j = 0; j < kGroupDkvBf; ++j) load_item(nxt[j], tc_nxt[j]);
+    for (int j = 0; j < kGroup; ++j) load_item(nxt[j], tc_nxt[j]);
 #pragma unroll
-    for (int j = 0; j < kGroupDkvBf; ++j) {
+    for (int j = 0; j < kGroup; ++j) {
       if (lr == n_rows) break;  // warp-uniform
       const int xcol = tc_cur[j] * tile + ch * kChunk + 8 * lane;
       unsigned nz = tc_cur[j] >= 0 ? cur[j].nonzero() : 0u;
@@ -1301,7 +1312,7 @@ flash_dkv_bf16_kernel(const V* __restrict__ vals, const int* __restrict__ tile_c
       }
       const int total_j = __shfl_sync(kFull, incl, 31);
       if (n + total_j > kCap) {
-        drain_dkv_bf(lst, n, w, q, g, stats, lane, d, scale);
+        drain(n);
         n = 0;
       }
       int pos = n + incl - cnt;
@@ -1313,19 +1324,144 @@ flash_dkv_bf16_kernel(const V* __restrict__ vals, const int* __restrict__ tile_c
         ch = 0;
         if (++ir == t_end) {  // the row is whole
           ir = t_begin;
-          drain_dkv_bf(lst, n, w, q, g, stats, lane, d, scale);
-          put_row(lr);
+          drain(n);
+          put_row(grow0 + lr * kWarps);
           n = 0;
-          if (++lr < n_rows) start_row(lr);
+          if (++lr < n_rows) start_row(grow0 + lr * kWarps);
         }
       }
     }
 #pragma unroll
-    for (int j = 0; j < kGroupDkvBf; ++j) {
+    for (int j = 0; j < kGroup; ++j) {
       cur[j] = nxt[j];
       tc_cur[j] = tc_nxt[j];
     }
   }
+}
+
+// K5 for bf16 q, k, v, g with d % 8 == 0 and d <= 256 (one slice): a warp
+// owns kRowsDkvBf source rows of a row tile of the transposed set
+// (scan_rows_bf), with k_j and v_j loaded as its walk reaches the row.  The
+// lists and the sums are flash_bwd_kernel's, so the bits are its.
+template <typename V>
+__global__ void __launch_bounds__(kThreads, kMinBlocksDkvBf)
+flash_dkv_bf16_kernel(const V* __restrict__ vals, const int* __restrict__ tile_col,
+                      const int* __restrict__ tile_rowptr, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ q,
+                      const bf16* __restrict__ g, const float* __restrict__ stats,
+                      float* __restrict__ dk, float* __restrict__ dv, int tile, int rows,
+                      int rows_g, int d, float scale) {
+  __shared__ int lst_all[kWarps][kCap];
+  const int lane = threadIdx.x & 31;
+  int* lst = lst_all[threadIdx.x >> 5];
+  const int col = 8 * lane;
+  const bool on = col < d;
+  DkvRowBf w;
+  scan_rows_bf<kRowsDkvBf, kGroupDkvBf>(
+      vals, tile_col, tile_rowptr, tile, rows, rows_g, lst,
+      [&](int64_t grow) {
+        w.k = load_raw(k + grow * d + col, on);
+        w.v = load_raw(v + grow * d + col, on);
+#pragma unroll
+        for (int c = 0; c < 8; ++c) w.dk[c] = w.dv[c] = 0.f;
+      },
+      [&](int n) { drain_dkv_bf(lst, n, w, q, g, stats, lane, d, scale); },
+      [&](int64_t grow) {
+        store_cols<true, bf16>(dk + grow * d, 0, lane, d, w.dk);
+        store_cols<true, bf16>(dv + grow * d, 0, lane, d, w.dv);
+      });
+}
+
+// A warp's destination row while K4-bf16 drains its list: q_i and g_i as
+// loaded (8 bf16 a lane, unpacked at each dot product), the row's stats
+// (M, den, delta) and the dq sums.
+struct DqRowBf {
+  uint4 q, g;
+  float m, den, delta;
+  float dq[8];
+};
+
+// Adds the terms of the list's n entries to the row's dq in list order, as
+// drain_bwd does for K4 (the same lane partials over the same 8 columns,
+// the same tree of additions for each dot product, the same expf and
+// divide, the same sums), so the bits are drain_bwd's.  What differs is
+// what is in flight and the work around it: kUnrollDqBf entries are taken
+// a step, their k and v rows issued together and kept raw until their
+// math (k_j unpacked once for its dot product and again for dq += ds k_j);
+// the 2 kUnrollDqBf dot products of a step are reduced together
+// (warp_sums).
+__device__ __forceinline__ void drain_dq_bf(const int* lst, int n, DqRowBf& w,
+                                            const bf16* __restrict__ k,
+                                            const bf16* __restrict__ v, int lane, int d,
+                                            float scale) {
+  __syncwarp();
+  const int col = 8 * lane;
+  const bool on = col < d;
+  for (int b = 0; b < n; b += kUnrollDqBf) {
+    uint4 ka[kUnrollDqBf], va[kUnrollDqBf];
+    issue_rows_bf(lst, b, n, k, v, col, on, d, ka, va);
+    float x[2 * kUnrollDqBf];  // s = q_i . k_j and g_i . v_j of each entry
+    {
+      float oq[8], og[8];
+      unpack8(w.q, oq);
+      unpack8(w.g, og);
+#pragma unroll
+      for (int u = 0; u < kUnrollDqBf; ++u) {
+        float xk[8], xv[8];
+        unpack8(ka[u], xk);
+        unpack8(va[u], xv);
+        x[2 * u] = dot8(oq, xk, 0.f);
+        x[2 * u + 1] = dot8(og, xv, 0.f);
+      }
+    }
+    warp_sums(x, lane);
+#pragma unroll
+    for (int u = 0; u < kUnrollDqBf; ++u) {
+      if (b + u >= n) break;  // warp-uniform
+      const float a = expf(x[2 * u] * scale - w.m) / w.den;
+      const float ds = round_to<bf16>(a * (x[2 * u + 1] - w.delta) * scale);
+      float xk[8];
+      unpack8(ka[u], xk);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) w.dq[c] = fmaf(ds, xk[c], w.dq[c]);
+    }
+  }
+  __syncwarp();
+}
+
+// K4 for bf16 q, k, v, g with d % 8 == 0 and d <= 256 (one slice): a warp
+// owns kRowsDqBf destination rows of a row tile (scan_rows_bf), with q_i,
+// g_i and the row's stats loaded as its walk reaches the row.  The lists
+// and the sums are flash_bwd_kernel's, so the bits are its.
+template <typename V>
+__global__ void __launch_bounds__(kThreads, kMinBlocksDqBf)
+flash_dq_bf16_kernel(const V* __restrict__ vals, const int* __restrict__ tile_col,
+                     const int* __restrict__ tile_rowptr, const bf16* __restrict__ q,
+                     const bf16* __restrict__ g, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const float* __restrict__ stats,
+                     float* __restrict__ dq, int tile, int rows, int rows_g, int d,
+                     float scale) {
+  __shared__ int lst_all[kWarps][kCap];
+  const int lane = threadIdx.x & 31;
+  int* lst = lst_all[threadIdx.x >> 5];
+  const int col = 8 * lane;
+  const bool on = col < d;
+  DqRowBf w;
+  // an item of the 2- and 4-byte stores takes 4 and 8 registers where an
+  // int8 one takes 2: at 80 registers a second one in flight spills
+  scan_rows_bf<kRowsDqBf, sizeof(V) == 1 ? kGroupDqBf : kGroupDqBfWideVals>(
+      vals, tile_col, tile_rowptr, tile, rows, rows_g, lst,
+      [&](int64_t grow) {
+        w.q = load_raw(q + grow * d + col, on);
+        w.g = load_raw(g + grow * d + col, on);
+        w.m = __ldg(stats + grow * 3);
+        w.den = __ldg(stats + grow * 3 + 1);
+        w.delta = __ldg(stats + grow * 3 + 2);
+#pragma unroll
+        for (int c = 0; c < 8; ++c) w.dq[c] = 0.f;
+      },
+      [&](int n) { drain_dq_bf(lst, n, w, k, v, lane, d, scale); },
+      [&](int64_t grow) { store_cols<true, bf16>(dq + grow * d, 0, lane, d, w.dq); });
 }
 
 // The grid of every kernel: the row slices of each row tile along x, the
@@ -1392,14 +1528,21 @@ struct LaunchBwd {
                     const void* own_b, const void* gat_a, const void* gat_b,
                     const float* stats, float* out_a, float* out_b, int nr, int tile,
                     int rows, int rows_g, int d, float scale, cudaStream_t stream) {
-      if constexpr (DKV && sizeof(F) == 2 && VEC && !WIDE) {
-        constexpr int kRowsPerBlock = kWarps * kRowsDkvBf;
+      if constexpr (sizeof(F) == 2 && VEC && !WIDE) {
+        constexpr int kRowsPerBlock = kWarps * (DKV ? kRowsDkvBf : kRowsDqBf);
         const dim3 grid(nr * ((tile + kRowsPerBlock - 1) / kRowsPerBlock), 1, 1);
-        flash_dkv_bf16_kernel<V><<<grid, kThreads, 0, stream>>>(
-            static_cast<const V*>(vals), tc, tp, static_cast<const bf16*>(own_a),
-            static_cast<const bf16*>(own_b), static_cast<const bf16*>(gat_a),
-            static_cast<const bf16*>(gat_b), stats, out_a, out_b, tile, rows, rows_g, d,
-            scale);
+        const auto* a = static_cast<const bf16*>(own_a);
+        const auto* b = static_cast<const bf16*>(own_b);
+        const auto* ga = static_cast<const bf16*>(gat_a);
+        const auto* gb = static_cast<const bf16*>(gat_b);
+        if constexpr (DKV)
+          flash_dkv_bf16_kernel<V><<<grid, kThreads, 0, stream>>>(
+              static_cast<const V*>(vals), tc, tp, a, b, ga, gb, stats, out_a, out_b, tile,
+              rows, rows_g, d, scale);
+        else
+          flash_dq_bf16_kernel<V><<<grid, kThreads, 0, stream>>>(
+              static_cast<const V*>(vals), tc, tp, a, b, ga, gb, stats, out_a, tile, rows,
+              rows_g, d, scale);
       } else {
         flash_bwd_kernel<V, F, VEC, WIDE, DKV>
             <<<grid_of(DKV ? kDkv : kDq, nr, tile, d), kThreads, 0, stream>>>(

@@ -636,40 +636,42 @@ def test_flash_tiles_split_counts(dtype, t, d):
                       "dkv": before["dkv"] + 2 * shards}
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("store", [torch.int8, torch.bfloat16])
-@pytest.mark.parametrize("case,t,d", [("long", 64, 256), ("short", 64, 256), ("empty", 32, 24),
-                                      ("full", 256, 256), ("split", 64, 256), ("wide", 32, 264),
-                                      ("odd", 32, 100)])
-def test_flash_dkv_bf16_drain(store, case, t, d):
-    """K5's bf16 entry (its own drain for 16-byte rows and d <= 256; the
-    wide path, d = 264, and the scalar one, d = 100, keep drain_bwd) on the
-    lists that stress it, with chip_smoke's checks (phase 27's tolerances,
-    K3 and K4 alongside, a second launch of each bitwise equal): "long"
-    source row 2 T + 9 gathers from 40 rows of each tile of column tile 2
-    (more than a 32-entry batch of stats and than the entries in flight);
-    "short" the source rows of column tile 3 hold 0-3 entries; "empty"
-    every other source row holds no entry, and column tile 5 no tile (K5's
-    rows of row tile 5 zero); "full" source row 2 T + 7 is full in the 4
-    tiles of column tile 2 (1,024 entries: the list of 512 drains
-    mid-scan); "split" two shards at split row counts (own rows 7 T, the
-    gathered buffer 14 T: rows_g is not rows)."""
+_DRAIN_CASES = [("long", 64, 256), ("short", 64, 256), ("empty", 32, 24), ("full", 256, 256),
+                ("split", 64, 256), ("wide", 32, 264), ("odd", 32, 100)]
+
+
+def _check_bf16_drain(kind, store, case, t, d, seed):
+    """The bf16 entries of K3-K5 with chip_smoke's checks (phase 27's
+    tolerances, a second launch of each bitwise equal) on the tiles of
+    _DRAIN_PAIRS, 3% full, whose lists stress the drain of K4 (``kind``
+    "dq": the cases hit destination rows, the tiles' rows of row tile
+    ``at`` = 0) or of K5 ("dkv": source rows, the tiles' columns of column
+    tile ``at`` = 2): "long" row 9 of ``at`` takes 40 entries from each of
+    its tiles; "short" the rows of tile 3 hold 0-3 entries; "empty" every
+    other row holds no entry, and the row tile ``idle`` (K4: 2, K5: 5) no
+    tile, so its rows come out zero; "full" row 7 of ``at`` is full in
+    each of its tiles; "split" two shards at split row counts (own rows
+    7 T, the gathered buffer 14 T); "wide" and "odd" (d = 264, 100) take
+    drain_bwd."""
     _need_cuda()
     import chip_smoke
 
-    gen = torch.Generator(device="cuda").manual_seed(6)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     n_r = 7
     trow, tcol = torch.tensor(_DRAIN_PAIRS, device="cuda").int().T.contiguous()
     mask = torch.rand(len(trow), t, t, device="cuda", generator=gen) < 0.03
+    # the drained rows as the first tile axis: K5's are the tiles' columns
+    own, rows_of, at, idle = ((trow, mask, 0, 2) if kind == "dq" else
+                              (tcol, mask.transpose(1, 2), 2, 5))
     if case == "long":
-        mask[tcol == 2, :, 9] = False
-        mask[tcol == 2, :40, 9] = True
+        rows_of[own == at, 9, :] = False
+        rows_of[own == at, 9, :40] = True
     elif case == "short":
-        mask[tcol == 3] = torch.rand(mask[tcol == 3].shape, device="cuda", generator=gen) < 1.5 / t
+        mask[own == 3] = torch.rand(mask[own == 3].shape, device="cuda", generator=gen) < 1.5 / t
     elif case == "empty":
-        mask[:, :, ::2] = False
+        rows_of[:, ::2, :] = False
     elif case == "full":
-        mask[tcol == 2, :, 7] = True
+        rows_of[own == at, 7, :] = True
     if store is torch.int8:
         vals = (mask * torch.randint(1, 3, mask.shape, device="cuda", generator=gen)).to(store)
     else:
@@ -699,18 +701,55 @@ def test_flash_dkv_bf16_drain(store, case, t, d):
         q, k, v, g = (torch.randn(2 * rps, d, device="cuda", generator=gen).to(torch.bfloat16)
                       for _ in range(4))
         chip_smoke.check_flash_split(sets, q, k, v, g, rps)
-        assert ft.LAUNCHES_BF16 == {kind: before[kind] + 4 for kind in ("fwd", "dq", "dkv")}
+        assert ft.LAUNCHES_BF16 == {kd: before[kd] + 4 for kd in ("fwd", "dq", "dkv")}
         return
     rows = n_r * t - 3
     q, k, v, g = (torch.randn(rows, d, device="cuda", generator=gen).to(torch.bfloat16)
                   for _ in range(4))
     fwd_set, bwd_set = _tile_sets(trow, tcol, vals, n_r)
     stats, _ = chip_smoke.check_flash_kernels(fwd_set, bwd_set, q, k, v, g, rows)
-    dk, dv = ft.flash_tiles_dkv(*bwd_set, q, k, v, g, stats, 1.0 / d ** 0.5)
+    scale = 1.0 / d ** 0.5
+    outs = ([ft.flash_tiles_dq(*fwd_set, q, k, v, g, stats, scale)] if kind == "dq" else
+            ft.flash_tiles_dkv(*bwd_set, q, k, v, g, stats, scale))
     torch.cuda.synchronize()
-    assert ft.LAUNCHES_BF16 == {"fwd": before["fwd"] + 2, "dq": before["dq"] + 2,
-                                "dkv": before["dkv"] + 3}
-    assert not dk[5 * t: 6 * t].any() and not dv[5 * t: 6 * t].any()
+    assert ft.LAUNCHES_BF16 == {kd: before[kd] + (3 if kd == kind else 2)
+                                for kd in ("fwd", "dq", "dkv")}
+    assert not any(o[idle * t: (idle + 1) * t].any() for o in outs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("case,t,d", _DRAIN_CASES)
+def test_flash_dkv_bf16_drain(store, case, t, d):
+    """K5's bf16 entry (its own drain for 16-byte rows and d <= 256; the
+    wide path, d = 264, and the scalar one, d = 100, keep drain_bwd) on the
+    lists that stress it, K3 and K4 alongside (_check_bf16_drain): "long"
+    source row 2 T + 9 gathers from 40 rows of each tile of column tile 2
+    (more than a 32-entry batch of stats and than the entries in flight);
+    "short" the source rows of column tile 3 hold 0-3 entries; "empty"
+    every other source row holds no entry, and column tile 5 no tile (K5's
+    rows of row tile 5 zero); "full" source row 2 T + 7 is full in the 4
+    tiles of column tile 2 (1,024 entries: the list of 512 drains
+    mid-scan); "split" two shards at split row counts (rows_g is not
+    rows)."""
+    _check_bf16_drain("dkv", store, case, t, d, seed=6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("case,t,d", _DRAIN_CASES)
+def test_flash_dq_bf16_drain(store, case, t, d):
+    """K4's bf16 entry (its own kernel for 16-byte rows and d <= 256; the
+    wide path, d = 264, and the scalar one, d = 100, keep drain_bwd) on the
+    lists that stress it, K3 and K5 alongside (_check_bf16_drain): "long"
+    destination row 9 gathers from 40 columns of each of row tile 0's 6
+    tiles (more than a step's entries and than a 32-entry batch); "short"
+    the rows of row tile 3 hold 0-3 entries; "empty" every other
+    destination row holds no entry, and row tile 2 no tile (its dq zero);
+    "full" row 7 of row tile 0 is full in its 6 tiles (1,536 entries at
+    T = 256: the list of 512 drains mid-scan); "split" two shards at split
+    row counts (rows_g is not rows)."""
+    _check_bf16_drain("dq", store, case, t, d, seed=7)
 
 
 @pytest.mark.cuda
