@@ -52,6 +52,7 @@ from plnlp_tpu_torch.graph import (
     to_undirected_edges,
 )
 from plnlp_tpu_torch.logger import Logger
+from plnlp_tpu_torch.profiling import span
 from plnlp_tpu_torch.training import Model, ModelConfig, adjust_lr
 
 __all__ = ["argument", "main", "run_experiment", "prepare_experiment", "run_scoring"]
@@ -429,7 +430,8 @@ def prepare_experiment(args, log=print, serving=False, device=None):
     node_feat = ds.get("node_feat")
     num_node_feats = 0 if node_feat is None else node_feat.shape[1]
 
-    surg = apply_dataset_surgery(ds, args)
+    with span("prepare.surgery"):
+        surg = apply_dataset_surgery(ds, args)
     split_edge = surg["split_edge"]
     use_dense = args.adj_backend == "dense" or (
         args.adj_backend == "auto" and num_nodes <= args.dense_threshold
@@ -702,6 +704,7 @@ def _quiet(*_args, **_kw) -> None:
 
 
 def _run_experiment(args, log, guard, device):
+    from plnlp_tpu_torch import profiling
     from plnlp_tpu_torch.profiling import (
         MetricsWriter,
         ThroughputMeter,
@@ -712,7 +715,11 @@ def _run_experiment(args, log, guard, device):
 
     from plnlp_tpu_torch.parallel.sharded import full_state, load_full_state
 
-    exp = prepare_experiment(args, log=log, device=device)
+    # --profile_dir records the set-up's spans too (one log line below)
+    traced = bool(args.profile_dir) and _rank() == 0
+    with profiling.tracing(traced):
+        exp = prepare_experiment(args, log=log, device=device)
+    setup_spans = profiling.drain() if traced else []
     model: Model = exp["model"]
     dev = exp["device"]
     mesh = exp["mesh"]
@@ -747,6 +754,12 @@ def _run_experiment(args, log, guard, device):
         if log_file:
             with open(log_file, "a") as f:
                 f.write(str(msg) + "\n")
+
+    if setup_spans:
+        emit("[profile] set-up " + ", ".join(
+            f"{sp.name} {(sp.t1_ns - sp.t0_ns) / 1e9:.3f} s"
+            for sp in sorted(setup_spans, key=lambda sp: sp.t0_ns)
+        ))
 
     if eval_metric == "hits":
         loggers = {k: Logger(args.runs, args) for k in ("Hits@20", "Hits@50", "Hits@100")}
@@ -845,10 +858,20 @@ def _run_experiment(args, log, guard, device):
                 )
             epoch_s = meter.stop(pos.shape[0])
             if profiled:
-                # the captured epoch's top device ops, into the text log
+                # the captured epoch's top device ops and its spans by self
+                # time (recorded while the profiler ran), into the text log
                 for row in summarize_trace(args.profile_dir, top=10):
                     emit(f"[profile] {row['total_ms']:9.3f} ms x{row['count']:<4d} "
                          f"{row['name'][:120]}")
+                recorded = profiling.drain()
+                profiling.write_spans(
+                    os.path.join(args.profile_dir,
+                                 f"plnlp_{os.getpid()}_{time.time_ns()}.spans.json"),
+                    recorded,
+                )
+                for row in profiling.span_table(recorded, top=10):
+                    emit(f"[profile] span {row['self_ms']:9.3f} ms self "
+                         f"{row['total_ms']:9.3f} ms x{row['count']:<4d} {row['name']}")
             metrics.write(
                 run=run,
                 epoch=epoch,

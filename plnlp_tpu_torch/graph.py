@@ -28,6 +28,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from plnlp_tpu_torch.profiling import span
+
 __all__ = [
     "Graph",
     "build_graph",
@@ -384,20 +386,26 @@ def prepare_graph(
             "map pairs block slots between the two graphs"
         )
     device = default_device(device)
-    csr = _csr_np(src, dst, weight, num_nodes, symmetrize, coalesce)
-    e = csr["num_edges"]
-    csr_t = _csr_np(
-        csr["receivers"][:e], csr["senders"][:e], csr["edge_weight"][:e],
-        num_nodes, False, False,
-    )
-    if block is None:
-        return _to_graph(csr, None, device), _to_graph(csr_t, None, device)
-    blocks, blocks_t = _blocks_np(csr, *block), _blocks_np(csr_t, *block)
-    g = _to_graph(csr, blocks, device)
-    if couple_transpose:
-        tmap = _tconv_map_np(blocks, blocks_t, block[0], block[0])
-        g = dataclasses.replace(g, tconv_map=torch.from_numpy(tmap).to(device))
-    return g, _to_graph(csr_t, blocks_t, device)
+    with span("graph.prepare_graph"):
+        with span("graph.csr"):
+            csr = _csr_np(src, dst, weight, num_nodes, symmetrize, coalesce)
+        e = csr["num_edges"]
+        with span("graph.csr_t"):
+            csr_t = _csr_np(
+                csr["receivers"][:e], csr["senders"][:e], csr["edge_weight"][:e],
+                num_nodes, False, False,
+            )
+        blocks = blocks_t = tmap = None
+        if block is not None:
+            with span("graph.blocks"):
+                blocks, blocks_t = _blocks_np(csr, *block), _blocks_np(csr_t, *block)
+            if couple_transpose:
+                tmap = _tconv_map_np(blocks, blocks_t, block[0], block[0])
+        with span("graph.upload"):
+            g = _to_graph(csr, blocks, device)
+            if tmap is not None:
+                g = dataclasses.replace(g, tconv_map=torch.from_numpy(tmap).to(device))
+            return g, _to_graph(csr_t, blocks_t, device)
 
 
 def transpose_graph(graph: Graph) -> Graph:

@@ -20,9 +20,17 @@ from plnlp_tpu_torch.models.predictors import (
     grid_scores_left,
     grid_transform_right,
 )
+from plnlp_tpu_torch.profiling import span
 from plnlp_tpu_torch.training import Model
 
 __all__ = ["Scorer"]
+
+# What ``Scorer.rank_candidates_batch`` hands to the device, counted on
+# every call on any device (as ``ops/scatter_matmul.LAUNCHES`` counts
+# launches): its requests and the bytes it copies in (candidates, sources,
+# a candidate map).
+REQUESTS = 0
+H2D_BYTES = 0
 
 
 class Scorer:
@@ -93,6 +101,7 @@ class Scorer:
         """``mask(srcs, scores)`` setting known-edge candidate columns of
         ``scores`` (S, C) to -inf, from ``exclude_graph``'s CSR: the senders
         of each source's in-edges (its neighbors on a symmetric graph)."""
+        global H2D_BYTES
         g = self.exclude_graph
         n = self.model.num_nodes
         c = len(candidates)
@@ -119,6 +128,7 @@ class Scorer:
             pos = np.full(n, c, np.int64)
             pos[candidates] = np.arange(c)
             cand_pos = torch.as_tensor(pos, device=g.device)
+            H2D_BYTES += pos.nbytes
         md = max(int(g.max_degree), 1)
         offs = torch.arange(md, device=g.device)
         indptr = g.indptr.long()
@@ -154,36 +164,46 @@ class Scorer:
         score the explicit pair grid, and so does every predictor under a
         mesh with a data axis (the grid's pairs split over it).
         """
+        global REQUESTS, H2D_BYTES
         dev = self.h.device
-        srcs = np.asarray(srcs, np.int64).reshape(-1)
-        if candidates is None:
-            candidates = np.arange(self.model.num_nodes, dtype=np.int64)
-        candidates = np.asarray(candidates, np.int64)
-        s, c = len(srcs), len(candidates)
-        k = min(k, c)
-        mask = self._neighbor_mask(candidates) if exclude_edges else None
-        cand_d = torch.as_tensor(candidates, device=dev)
-        per = max(1, self._MAX_GRID_PAIRS // max(c, 1))
-        pred = self.model.predictor
-        data_sharded = self.mesh is not None and self.mesh.data > 1
-        factorized = grid_factorizable(pred.name) and not data_sharded
-        ids_out, scores_out = [], []
-        with torch.no_grad():
-            right = grid_transform_right(pred, self.h[cand_d]) if factorized else None
+        REQUESTS += 1
+        with span("serve.rank"), torch.no_grad():
+            with span("serve.rank.prep"):
+                srcs = np.asarray(srcs, np.int64).reshape(-1)
+                if candidates is None:
+                    candidates = np.arange(self.model.num_nodes, dtype=np.int64)
+                candidates = np.asarray(candidates, np.int64)
+                s, c = len(srcs), len(candidates)
+                k = min(k, c)
+                mask = self._neighbor_mask(candidates) if exclude_edges else None
+                cand_d = torch.as_tensor(candidates, device=dev)
+                H2D_BYTES += candidates.nbytes + srcs.nbytes
+                per = max(1, self._MAX_GRID_PAIRS // max(c, 1))
+                pred = self.model.predictor
+                data_sharded = self.mesh is not None and self.mesh.data > 1
+                factorized = grid_factorizable(pred.name) and not data_sharded
+                right = grid_transform_right(pred, self.h[cand_d]) if factorized else None
+            ids_out, scores_out = [], []
             for lo in range(0, s, per):
-                srcs_d = torch.as_tensor(srcs[lo : lo + per], device=dev)
-                if factorized:
-                    scores = grid_scores_left(pred, self.h[srcs_d], right)
-                else:
-                    sc = srcs_d.shape[0]
-                    pairs = torch.stack(
-                        [srcs_d.repeat_interleave(c), cand_d.repeat(sc)], dim=1
-                    )
-                    scores = self.model.batch_predict(self.h, pairs, mesh=self.mesh).reshape(sc, c)
-                scores = scores.float()
+                with span("serve.rank.grid"):
+                    srcs_d = torch.as_tensor(srcs[lo : lo + per], device=dev)
+                    if factorized:
+                        scores = grid_scores_left(pred, self.h[srcs_d], right)
+                    else:
+                        sc = srcs_d.shape[0]
+                        pairs = torch.stack(
+                            [srcs_d.repeat_interleave(c), cand_d.repeat(sc)], dim=1
+                        )
+                        scores = self.model.batch_predict(
+                            self.h, pairs, mesh=self.mesh
+                        ).reshape(sc, c)
+                    scores = scores.float()
                 if mask is not None:
-                    scores = mask(srcs_d, scores)
-                top, idx = torch.topk(scores, k, dim=1)
-                ids_out.append(cand_d[idx].cpu().numpy())
-                scores_out.append(top.cpu().numpy())
+                    with span("serve.rank.mask"):
+                        scores = mask(srcs_d, scores)
+                with span("serve.rank.topk"):
+                    top, idx = torch.topk(scores, k, dim=1)
+                with span("serve.rank.copy_out"):
+                    ids_out.append(cand_d[idx].cpu().numpy())
+                    scores_out.append(top.cpu().numpy())
         return np.concatenate(ids_out), np.concatenate(scores_out)

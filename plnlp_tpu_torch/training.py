@@ -54,6 +54,7 @@ from plnlp_tpu_torch.parallel.graph_parallel import (
     shard_node_features,
 )
 from plnlp_tpu_torch.parallel.mesh import Mesh, gather_rows, shard_batch
+from plnlp_tpu_torch.profiling import span
 from plnlp_tpu_torch.sampling import (
     global_neg_sample,
     global_perm_neg_sample,
@@ -276,23 +277,30 @@ class Model(nn.Module):
         loss on every rank."""
         mesh = self._resolve_mesh(graph, mesh)
         opt.zero_grad(set_to_none=True)
-        if mesh is None or mesh.world_size == 1:
-            loss = self.loss(graph, graph_t, node_feats, pos, neg, margin, mask, gen)
+        single = mesh is None or mesh.world_size == 1
+        with span("train.forward"):
+            if single:
+                loss = self.loss(graph, graph_t, node_feats, pos, neg, margin, mask, gen)
+            else:
+                loss = self._loss_share(
+                    mesh, graph, graph_t, node_feats, pos, neg, margin, mask, gen
+                )
+        with span("train.backward"):
             loss.backward()
-        else:
-            loss = self._loss_share(mesh, graph, graph_t, node_feats, pos, neg, margin, mask, gen)
-            loss.backward()
-            from plnlp_tpu_torch.parallel.sharded import reduce_gradients
+            if not single:
+                from plnlp_tpu_torch.parallel.sharded import reduce_gradients
 
-            reduce_gradients(self, mesh)
-            loss = loss.detach()
-            torch.distributed.all_reduce(loss)
+                reduce_gradients(self, mesh)
+                loss = loss.detach()
+                torch.distributed.all_reduce(loss)
         if self.cfg.grad_clip_norm >= 0:
-            for group in (self.encoder, self.predictor):
-                _clip_group(list(group.parameters()), self.cfg.grad_clip_norm)
-        for g in opt.param_groups:
-            g["lr"] = lr
-        opt.step()
+            with span("train.clip"):
+                for group in (self.encoder, self.predictor):
+                    _clip_group(list(group.parameters()), self.cfg.grad_clip_norm)
+        with span("train.optim"):
+            for g in opt.param_groups:
+                g["lr"] = lr
+            opt.step()
         return loss.detach()
 
     def _loss_share(self, mesh, graph, graph_t, node_feats, pos, neg, margin, mask, gen):
@@ -347,62 +355,67 @@ class Model(nn.Module):
         device.  ``mesh`` (default: a GraphParallel's own) splits each batch
         over its ranks; every rank must pass a generator with the same seed,
         so that all draw the same negatives and shuffle."""
-        mesh = self._resolve_mesh(graph, mesh)
-        cfg = self.cfg
-        dev = self.device
-        pos_edges = torch.as_tensor(pos_edges, device=dev).long()
-        p_cap = pos_edges.shape[0]
-        p_real = num_pos if num_pos is not None else p_cap
-        use_margin = weights is not None
-        sg = sample_graph if sample_graph is not None else graph
-        neg_edges = self.sample_negatives(gen, sg, pos_edges)
+        with span("train.epoch"):
+            mesh = self._resolve_mesh(graph, mesh)
+            cfg = self.cfg
+            dev = self.device
+            pos_edges = torch.as_tensor(pos_edges, device=dev).long()
+            p_cap = pos_edges.shape[0]
+            p_real = num_pos if num_pos is not None else p_cap
+            use_margin = weights is not None
+            sg = sample_graph if sample_graph is not None else graph
+            with span("train.sample"):
+                neg_edges = self.sample_negatives(gen, sg, pos_edges)
 
-        # shuffle the real positives; a padded tail stays at the end, masked
-        perm = torch.randperm(p_real, generator=gen, device=gen.device).to(dev)
-        if p_cap > p_real:
-            perm = torch.cat([perm, torch.arange(p_real, p_cap, device=dev)])
-        pos_edges, neg_edges = pos_edges[perm], neg_edges[perm]
-        valid = (torch.arange(p_cap, device=dev) < p_real).float()
-        if pos_mask is not None:
-            valid = valid * torch.as_tensor(pos_mask, device=dev)[perm].float()
-        if use_margin:
-            weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)[perm]
+            with span("train.shuffle"):
+                # shuffle the real positives; a padded tail stays at the end, masked
+                perm = torch.randperm(p_real, generator=gen, device=gen.device).to(dev)
+                if p_cap > p_real:
+                    perm = torch.cat([perm, torch.arange(p_real, p_cap, device=dev)])
+                pos_edges, neg_edges = pos_edges[perm], neg_edges[perm]
+                valid = (torch.arange(p_cap, device=dev) < p_real).float()
+                if pos_mask is not None:
+                    valid = valid * torch.as_tensor(pos_mask, device=dev)[perm].float()
+                if use_margin:
+                    weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)[perm]
 
-        b = min(cfg.batch_size, p_cap)
-        drop_gen = gen
-        if mesh is not None and mesh.world_size > 1:
-            if b % mesh.world_size:
-                import warnings
+            b = min(cfg.batch_size, p_cap)
+            drop_gen = gen
+            if mesh is not None and mesh.world_size > 1:
+                if b % mesh.world_size:
+                    import warnings
 
-                warnings.warn(
-                    f"batch_size {b} is not divisible by the mesh's {mesh.world_size} "
-                    "ranks: pair batches split into uneven shares",
-                    stacklevel=2,
-                )
-            if cfg.dropout > 0:
-                # each rank its own dropout masks; the shared generator keeps
-                # drawing the same negatives and shuffles on every rank
-                seed = int(torch.randint(2**62, (1,), generator=gen, device=gen.device))
-                drop_gen = torch.Generator(device=gen.device).manual_seed(seed + mesh.rank)
-        losses, counts = [], []
-        for i in range(max(1, math.ceil(p_real / b))):
-            lo = fresh_lo = i * b
-            if min(lo + b, p_cap) - lo < b:
-                lo = p_cap - b
-            mask = valid[lo : lo + b]
-            if fresh_lo > lo:
-                mask = mask * (torch.arange(lo, lo + b, device=dev) >= fresh_lo)
-            loss = self.train_step(
-                opt, graph, graph_t, node_feats,
-                pos_edges[lo : lo + b], neg_edges[lo : lo + b],
-                weights[lo : lo + b] if use_margin else None, mask, lr, drop_gen,
-                **({} if mesh is None else {"mesh": mesh}),
-            )
-            # loss and count stay on the device: one sync per epoch
-            losses.append(loss)
-            counts.append(mask.sum())
-        losses, counts = torch.stack(losses), torch.stack(counts)
-        return float((losses * counts).sum()) / max(float(counts.sum()), 1.0)
+                    warnings.warn(
+                        f"batch_size {b} is not divisible by the mesh's {mesh.world_size} "
+                        "ranks: pair batches split into uneven shares",
+                        stacklevel=2,
+                    )
+                if cfg.dropout > 0:
+                    # each rank its own dropout masks; the shared generator keeps
+                    # drawing the same negatives and shuffles on every rank
+                    seed = int(torch.randint(2**62, (1,), generator=gen, device=gen.device))
+                    drop_gen = torch.Generator(device=gen.device).manual_seed(seed + mesh.rank)
+            losses, counts = [], []
+            for i in range(max(1, math.ceil(p_real / b))):
+                with span("train.step"):
+                    lo = fresh_lo = i * b
+                    if min(lo + b, p_cap) - lo < b:
+                        lo = p_cap - b
+                    mask = valid[lo : lo + b]
+                    if fresh_lo > lo:
+                        mask = mask * (torch.arange(lo, lo + b, device=dev) >= fresh_lo)
+                    loss = self.train_step(
+                        opt, graph, graph_t, node_feats,
+                        pos_edges[lo : lo + b], neg_edges[lo : lo + b],
+                        weights[lo : lo + b] if use_margin else None, mask, lr, drop_gen,
+                        **({} if mesh is None else {"mesh": mesh}),
+                    )
+                    # loss and count stay on the device: one sync per epoch
+                    losses.append(loss)
+                    counts.append(mask.sum())
+            with span("train.sync"):
+                losses, counts = torch.stack(losses), torch.stack(counts)
+                return float((losses * counts).sum()) / max(float(counts.sum()), 1.0)
 
     # -- evaluation ---------------------------------------------------------
 
@@ -463,25 +476,29 @@ class Model(nn.Module):
         """Reference BaseModel.test: encode once, score valid/test pos+neg
         pairs, Hits@K or MRR.  ``mesh`` splits the scoring over its data
         axis."""
-        h = self.encode(graph, graph_t, node_feats)
-        preds = {
-            split: {
-                kind: self.batch_predict(h, split_edges[split][kind], mesh=mesh)
-                for kind in ("pos", "neg")
-            }
-            for split in ("valid", "test")
-        }
-        if eval_metric == "mrr":
-            return evaluate_mrr(
-                preds["valid"]["pos"],
-                preds["valid"]["neg"].reshape(preds["valid"]["pos"].shape[0], -1),
-                preds["test"]["pos"],
-                preds["test"]["neg"].reshape(preds["test"]["pos"].shape[0], -1),
-            )
-        return evaluate_hits(
-            preds["valid"]["pos"], preds["valid"]["neg"],
-            preds["test"]["pos"], preds["test"]["neg"],
-        )
+        with span("eval.test"):
+            with span("eval.encode"):
+                h = self.encode(graph, graph_t, node_feats)
+            preds = {}
+            for split in ("valid", "test"):
+                preds[split] = {}
+                for kind in ("pos", "neg"):
+                    with span("eval.predict"):
+                        preds[split][kind] = self.batch_predict(
+                            h, split_edges[split][kind], mesh=mesh
+                        )
+            with span("eval.metric"):
+                if eval_metric == "mrr":
+                    return evaluate_mrr(
+                        preds["valid"]["pos"],
+                        preds["valid"]["neg"].reshape(preds["valid"]["pos"].shape[0], -1),
+                        preds["test"]["pos"],
+                        preds["test"]["neg"].reshape(preds["test"]["pos"].shape[0], -1),
+                    )
+                return evaluate_hits(
+                    preds["valid"]["pos"], preds["valid"]["neg"],
+                    preds["test"]["pos"], preds["test"]["neg"],
+                )
 
 
 def _clip_group(params, max_norm: float) -> None:
